@@ -14,6 +14,13 @@ Phases, one line each (any failed check raises and exits nonzero):
   5. serving  SlidingWindowInpainter (bfloat16, max_batch 14) on 3
               synthetic 70-frame 432x240 videos; launch counts; one window
               batch against the float32 plain path on the CPU
+  6. experiments  the seven kernels of the A/B experiments (E1-E6: banded
+              sampler variants, row gather, 4-corner sampler,
+              band-assembled attention) against their plain versions at
+              the experiments' default shapes, E1/E6 bit-equal to E5; then
+              the four experiment entry points
+              (e2fgvi_tpu_torch.experiments) with launch counts, and E2
+              against K3 on one random block
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Weights are the golden's deterministic
 random weights; nothing is downloaded.
@@ -31,16 +38,37 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, H, W = 14, 60, 108          # serving: windows per batch, quarter-res map
+# float32 (rtol, atol) against the plain version; bfloat16 max error
+# relative to the float32 plain result's scale. The gathers are exact; the
+# banded samplers and E4 sum the plain version's terms in its order; the
+# bfloat16 samplers round two (E5, E1, E6) or one (cbatch) times.
 F32_TOL = {"deform_im2col": (1e-5, 1e-4), "flow_warp": (1e-5, 1e-4),
-           "focal_attention": (2e-4, 2e-4)}
-BF16_REL = {"deform_im2col": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2}
+           "focal_attention": (2e-4, 2e-4),
+           "band_sample": (1e-5, 1e-5), "band_sample_cbatch": (1e-5, 1e-5),
+           "row_gather": (0.0, 0.0), "bilinear4_sample": (1e-6, 1e-6)}
+BF16_REL = {"deform_im2col": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2,
+            "band_sample": 2e-2, "band_sample_cbatch": 2e-2,
+            "band_sample_xpair": 2e-2, "band_sample_cpair": 2e-2,
+            "row_gather": 1e-6, "band_attention": 5e-2}
+CSRC = "e2fgvi_tpu_torch/csrc/"
 REPLACES = {
-    "deform_im2col": ("e2fgvi_tpu_torch/csrc/deform.cu",
+    "deform_im2col": (CSRC + "deform.cu",
                       "e2fgvi_tpu/kernels/dcn_band.py:158"),
-    "flow_warp": ("e2fgvi_tpu_torch/csrc/deform.cu",
-                  "e2fgvi_tpu/kernels/dcn_band.py:158"),
-    "focal_attention": ("e2fgvi_tpu_torch/csrc/focal_attention.cu",
+    "flow_warp": (CSRC + "deform.cu", "e2fgvi_tpu/kernels/dcn_band.py:158"),
+    "focal_attention": (CSRC + "focal_attention.cu",
                         "e2fgvi_tpu/kernels/fused_attention.py:57"),
+    "band_sample": (CSRC + "band_sampler.cu",
+                    "scripts/exp_dcn_inner_r04.py:83"),
+    "band_sample_cbatch": (CSRC + "band_sampler.cu",
+                           "scripts/exp_dcn_inner_r04.py:161"),
+    "band_sample_xpair": (CSRC + "band_sampler.cu",
+                          "scripts/exp_dcn_inner_r04.py:201"),
+    "band_sample_cpair": (CSRC + "band_sampler.cu",
+                          "scripts/exp_dcn_pack.py:39"),
+    "row_gather": (CSRC + "gather.cu", "scripts/exp_gather.py:123"),
+    "bilinear4_sample": (CSRC + "gather.cu", "scripts/exp_gather.py:171"),
+    "band_attention": (CSRC + "band_attention.cu",
+                       "scripts/exp_attn_band_r04.py:67"),
 }
 
 
@@ -68,48 +96,41 @@ def golden_state_dict(data):
             for k, s in zip(keys, shapes)}
 
 
-def time_ms(fn, iters=10, warmup=2):
-    """Median device time of fn() over iters runs, from CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def compare(name, kernel_fn, plain_fn, make_inputs, timed=True):
+def compare(name, kernel_fn, plain_fn, make_inputs, timed=True,
+            dtypes=("float32", "bfloat16")):
     """kernel vs plain in float32 (tight) and bfloat16 (relative to the
-    float32 plain result on the same rounded inputs)."""
+    float32 plain result on the same rounded inputs), in the dtypes the
+    kernel takes. ms / plain_ms are bfloat16 times where the kernel takes
+    bfloat16, float32 otherwise."""
     import torch
-    inputs = make_inputs(torch.float32)
-    got = kernel_fn(*inputs)
-    want = plain_fn(*inputs)
-    rtol, atol = F32_TOL[name]
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-    f32_err = float((got - want).abs().max())
-    inputs16 = make_inputs(torch.bfloat16)
-    got16 = kernel_fn(*inputs16).float()
-    want16 = plain_fn(*[t.float() if torch.is_tensor(t)
-                        and t.dtype == torch.bfloat16 else t
-                        for t in inputs16])
-    rel = float((got16 - want16).abs().max() / want16.abs().max())
-    if not rel < BF16_REL[name]:
-        raise AssertionError(f"{name} bf16: rel err {rel} >= "
-                             f"{BF16_REL[name]}")
-    res = {"max_abs_err": f32_err, "bf16_rel_err": rel}
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    res = {}
+    if "float32" in dtypes:
+        inputs = make_inputs(torch.float32)
+        got = kernel_fn(*inputs)
+        want = plain_fn(*inputs)
+        rtol, atol = F32_TOL[name]
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        res["max_abs_err"] = float((got - want).abs().max())
+    if "bfloat16" in dtypes:
+        inputs16 = make_inputs(torch.bfloat16)
+        got16 = kernel_fn(*inputs16).float()
+        want16 = plain_fn(*[t.float() if torch.is_tensor(t)
+                            and t.dtype == torch.bfloat16 else t
+                            for t in inputs16])
+        rel = float((got16 - want16).abs().max() / want16.abs().max())
+        if not rel < BF16_REL[name]:
+            raise AssertionError(f"{name} bf16: rel err {rel} >= "
+                                 f"{BF16_REL[name]}")
+        res["bf16_rel_err"] = rel
+        res.setdefault("max_abs_err", float((got16 - want16).abs().max()))
     if timed:
-        res["ms"] = time_ms(lambda: kernel_fn(*inputs16))
-        res["plain_ms"] = time_ms(lambda: plain_fn(*inputs16))
-        res["ms_f32"] = time_ms(lambda: kernel_fn(*inputs))
-        res["plain_ms_f32"] = time_ms(lambda: plain_fn(*inputs))
+        main = inputs16 if "bfloat16" in dtypes else inputs
+        res["ms"] = cuda_ms(lambda: kernel_fn(*main))
+        res["plain_ms"] = cuda_ms(lambda: plain_fn(*main))
+        if len(dtypes) == 2:
+            res["ms_f32"] = cuda_ms(lambda: kernel_fn(*inputs))
+            res["plain_ms_f32"] = cuda_ms(lambda: plain_fn(*inputs))
     return res
 
 
@@ -191,16 +212,22 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     return res
 
 
-def launch_counts():
-    from e2fgvi_tpu_torch.kernels import deform
-    from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    return {**deform.LAUNCHES, **fa.LAUNCHES}
+SERVING_KERNELS = ("deform", "focal_attention")
+EXPERIMENT_KERNELS = ("band_sampler", "gather", "band_attention")
 
 
-def reset_launch_counts():
-    from e2fgvi_tpu_torch.kernels import deform
-    from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    for d in (deform.LAUNCHES, fa.LAUNCHES):
+def _counters(modules):
+    import importlib
+    return [importlib.import_module("e2fgvi_tpu_torch.kernels." + m).LAUNCHES
+            for m in modules]
+
+
+def launch_counts(modules=SERVING_KERNELS):
+    return {k: v for d in _counters(modules) for k, v in d.items()}
+
+
+def reset_launch_counts(modules=SERVING_KERNELS):
+    for d in _counters(modules):
         for k in d:
             d[k] = 0
 
@@ -327,6 +354,100 @@ def window_batch_vs_plain(model32, model16, dev, frames, masks, windows):
     return err
 
 
+def check_experiment_kernels(dev):
+    """E1-E6 against their plain versions at the experiments' default
+    shapes; E6 and E1 bit-equal to E5 base on the same bfloat16 source."""
+    import torch
+    from e2fgvi_tpu_torch.experiments import exp_attn_band_r04 as ea
+    from e2fgvi_tpu_torch.experiments import exp_dcn_inner_r04 as ei
+    from e2fgvi_tpu_torch.experiments import exp_dcn_pack as ep
+    from e2fgvi_tpu_torch.experiments import exp_gather as eg
+    from e2fgvi_tpu_torch.kernels import band_attention as ba
+    from e2fgvi_tpu_torch.kernels import band_sampler as bs
+    from e2fgvi_tpu_torch.kernels import gather
+
+    res, exact = {}, {}
+    src, *pos, dy_lo = ei.make_inputs(dev)          # E5/E6: band 24
+    res["band_sample"] = compare(
+        "band_sample", bs.band_sample, bs.band_sample_plain,
+        lambda dt: (src.to(dt), *pos, dy_lo))
+    res["band_sample_cbatch"] = compare(
+        "band_sample_cbatch", bs.band_sample_cbatch,
+        bs.band_sample_cbatch_plain, lambda dt: (src.to(dt), *pos, dy_lo))
+    psrc = bs.pack_xpairs(src)
+    res["band_sample_xpair"] = compare(
+        "band_sample_xpair", bs.band_sample_xpair,
+        lambda p, *a: bs.band_sample_plain(bs.unpack_xpairs(p).float(), *a),
+        lambda dt: (psrc, *pos, dy_lo), dtypes=("bfloat16",))
+    base = bs.band_sample(src, *pos, dy_lo)
+    exact["E6 xpair"] = torch.equal(bs.band_sample_xpair(psrc, *pos, dy_lo),
+                                    base)
+    exact["E5 f32 gathers"] = torch.equal(
+        bs.band_sample(src.float(), *pos, dy_lo, out_dtype=torch.bfloat16),
+        base)
+    del src, pos, psrc, base
+    torch.cuda.empty_cache()
+
+    src, *pos, dy_lo = ep.make_inputs(dev)          # E1: band 48
+    pc = bs.pack_cpairs(src)
+    res["band_sample_cpair"] = compare(
+        "band_sample_cpair", bs.band_sample_cpair,
+        lambda p, *a: bs.band_sample_plain(bs.unpack_cpairs(p).float(), *a),
+        lambda dt: (pc, *pos, dy_lo), dtypes=("bfloat16",))
+    exact["E1 cpair"] = torch.equal(bs.band_sample_cpair(pc, *pos, dy_lo),
+                                    bs.band_sample(src, *pos, dy_lo))
+    del src, pos, pc
+    torch.cuda.empty_cache()
+    if not all(exact.values()):
+        raise AssertionError(f"packed samplers not bit-equal to E5: {exact}")
+
+    tab, idx, gpy, gpx = eg.make_inputs(dev)        # E3/E4: 60x108, 9 taps
+    res["row_gather"] = compare("row_gather", gather.row_gather,
+                                gather.row_gather_plain,
+                                lambda dt: (tab.to(dt), idx))
+    res["bilinear4_sample"] = compare(
+        "bilinear4_sample", gather.bilinear4_sample,
+        gather.bilinear4_sample_plain, lambda dt: (tab, gpy, gpx, H, W),
+        dtypes=("float32",))
+
+    block, x, pooled = ea.make_block(dev)           # E2: B 14, T 17
+    res["band_attention"] = compare(
+        "band_attention", ba.band_attention, ba.band_attention_plain,
+        lambda dt: (block.attn, x, pooled, ea.HEADS, ea.WIN, ea.EXP),
+        dtypes=("bfloat16",))
+    return res, exact
+
+
+def drive_experiments():
+    """The four experiment entry points, counts set to 0 just before and
+    read just after; the experiments' own checks must hold."""
+    from e2fgvi_tpu_torch.experiments import exp_attn_band_r04 as ea
+    from e2fgvi_tpu_torch.experiments import exp_dcn_inner_r04 as ei
+    from e2fgvi_tpu_torch.experiments import exp_dcn_pack as ep
+    from e2fgvi_tpu_torch.experiments import exp_gather as eg
+    reset_launch_counts(EXPERIMENT_KERNELS)
+    out = {"exp_dcn_inner_r04": ei.main(["--iters", "3"]),
+           "exp_dcn_pack": ep.main(["--iters", "3"]),
+           "exp_gather": eg.main(["--iters", "3"]),
+           "exp_attn_band_r04": ea.main([])}
+    counts = launch_counts(EXPERIMENT_KERNELS)
+    if not all(v > 0 for v in counts.values()):
+        raise AssertionError(f"the experiments missed a kernel: {counts}")
+    if not out["exp_dcn_inner_r04"]["packed_exact"]:
+        raise AssertionError("E6 packed is not bit-equal to E5 base")
+    if out["exp_dcn_pack"]["max_abs_err"] != 0.0:
+        raise AssertionError("E1 packed is not bit-equal to E5 current")
+    gerr = {v: out["exp_gather"][v]["max_err"] for v in ("v2", "v2b", "v3")}
+    if gerr["v2"] != 0.0 or gerr["v2b"] != 0.0 or not gerr["v3"] <= 1e-6:
+        raise AssertionError(f"exp_gather correctness: {gerr}")
+    attn = out["exp_attn_band_r04"]
+    for key in ("parity_rel", "parity_fv_rel"):
+        if not attn[key] < BF16_REL["focal_attention"]:
+            raise AssertionError(f"E2 vs K3 {key} {attn[key]} >= "
+                                 f"{BF16_REL['focal_attention']}")
+    return out, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -392,6 +513,21 @@ def main():
     if not err <= 0.05:
         raise AssertionError(f"bf16 window batch off by {err} > 0.05")
 
+    # 6. the experiments' kernels and entry points
+    del model16, model32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eres, exact = check_experiment_kernels(dev)
+    for name, r in eres.items():
+        log(f"kernel {name}: " + json.dumps(r))
+    log("bit-equal to E5 base: " + json.dumps(exact))
+    torch.cuda.empty_cache()
+    _, ecounts = drive_experiments()
+    log(f"experiments launches {json.dumps(ecounts)}; phase 6 "
+        f"{time.perf_counter() - t0:.1f} s")
+    kres.update(eres)
+    counts.update(ecounts)
+
     kernels = []
     for name, (src, replaces) in REPLACES.items():
         r = kres[name]
@@ -399,7 +535,8 @@ def main():
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"],
-                        "bf16_rel_err": r["bf16_rel_err"]})
+                        **({"bf16_rel_err": r["bf16_rel_err"]}
+                           if "bf16_rel_err" in r else {})})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,9 +20,9 @@
 // ~1.0 TFLOP of q.k and p.v per call, done here with float32 FMAs from
 // shared memory (each thread owns a 4x4 logit tile and a 4x8 output tile,
 // read as 16-byte vectors without bank conflicts) for float32, the parity
-// path, and on tensor cores (mma.sync, below) for bfloat16, the serving
-// path.
-// Reading keys through the index table inside the kernel is later work.
+// path, and on tensor cores (mma.sync, flash_mma.cuh) for bfloat16, the
+// serving path.
+// Reading keys in place, with no gather, is E2 (band_attention.cu).
 //
 // The biases are finite (-100 outside the pooled grid, ln(multiplicity) on
 // deduped slots, -1e9 on padding frames); keys past a panel's end get -inf.
@@ -31,6 +31,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace e2fgvi {
 
@@ -228,121 +229,51 @@ focal_attention_kernel(const T* __restrict__ q, const T* __restrict__ ko,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: the same flash loop on tensor cores, FlashAttention-2 style.
-// 4 warps, each owning 16 of the block's 64 query rows. Products are
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) with operands fetched by
-// ldmatrix from padded shared-memory tiles. The fragment layouts are fixed
-// by the PTX ISA, so the logits, the online-softmax state and the 16x128
-// output accumulator all stay in registers: a thread holds rows g and g+8
-// (g = lane/4) of each 8-column tile, the logit accumulator doubles as the
-// bf16 A operand of P V, and the per-row max reduces over the 4 lanes of a
-// quad. P is rounded to bfloat16 for P V, as the JAX kernel rounds p to
-// v's dtype; the row sums use the unrounded p.
+// bfloat16: the same flash loop on tensor cores, FlashAttention-2 style
+// (flash_mma.cuh, shared with E2's band_attention.cu): mma.sync m16n8k16
+// with the logits, the online-softmax state and the output accumulator in
+// registers. This kernel's part is where the rows come from: the own panel
+// and the gathered panel of the per-head window partitions.
 // ---------------------------------------------------------------------------
 
-constexpr int kMThreads = 128;
-constexpr int kLd = kHD + 8;   // bf16 tile rows: 272 B, conflict-free ldmatrix
-constexpr int kMSmemBytes = 3 * kBQ * kLd * 2 + kBK * 4;
+constexpr int kMSmemBytes = 3 * mma::kTileBytes + mma::kBK * 4;
 
-using bf16 = __nv_bfloat16;
-
-// rows [0, 64) of a (rows, 128) bf16 matrix into shared memory as 16-byte
-// chunks; row_of(r) gives the global row of tile row r, or -1 for zeros
-template <typename RowFn>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               RowFn row_of) {
-  for (int c = threadIdx.x; c < kBQ * (kHD / 8); c += kMThreads) {
-    const int r = c / (kHD / 8), cc = c % (kHD / 8);
-    const long long row = row_of(r);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row >= 0)
-      v = *reinterpret_cast<const uint4*>(src + row * kHD + cc * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + cc * 8) = v;
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__global__ void __launch_bounds__(kMThreads)
-focal_attention_mma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ ko,
-                           const bf16* __restrict__ vo,
-                           const bf16* __restrict__ kg,
-                           const bf16* __restrict__ vg,
+__global__ void __launch_bounds__(mma::kThreads)
+focal_attention_mma_kernel(const mma::bf16* __restrict__ q,
+                           const mma::bf16* __restrict__ ko,
+                           const mma::bf16* __restrict__ vo,
+                           const mma::bf16* __restrict__ kg,
+                           const mma::bf16* __restrict__ vg,
                            const float* __restrict__ bias_o,
                            const float* __restrict__ bias_g,
-                           bf16* __restrict__ out, int heads, int nwin,
+                           mma::bf16* __restrict__ out, int heads, int nwin,
                            int nt, int S, int nq, int no) {
+  using mma::bf16;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBQ * kLd;
-  bf16* Vs = Ks + kBK * kLd;
-  float* Bs = reinterpret_cast<float*>(Vs + kBK * kLd);
+  bf16* Ks = Qs + mma::kBQ * mma::kLd;
+  bf16* Vs = Ks + mma::kBK * mma::kLd;
+  float* Bs = reinterpret_cast<float*>(Vs + mma::kBK * mma::kLd);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;      // fragment row / column pair
-  const int lm = lane >> 3, lr = lane & 7;     // ldmatrix matrix / row
-  const int q0 = blockIdx.x * kBQ;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * mma::kBQ;
   const int h = blockIdx.y;
   const int bw = blockIdx.z;                   // b * nwin + w
   const int b = bw / nwin, w = bw % nwin;
   const long long bhw = ((long long)b * heads + h) * nwin + w;
 
-  load_tile_bf16(Qs, q, [&](int r) -> long long {
-    return q0 + r < nq ? bhw * nq + q0 + r : -1;
+  mma::load_tile(Qs, [&](int r) -> const bf16* {
+    return q0 + r < nq ? q + (bhw * nq + q0 + r) * kHD : nullptr;
   });
   __syncthreads();
-  // the warp's 16 query rows as 8 A fragments (16 x 16 each)
-  unsigned qa[kHD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < kHD / 16; ++ks)
-    ldmatrix_x4(qa[ks], Qs + (warp * 16 + lr + 8 * (lm & 1)) * kLd +
-                            ks * 16 + 8 * (lm >> 1));
-
-  float o[kHD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kHD / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};   // rows g and g + 8
-  float l_r[2] = {0.f, 0.f};               // this lane's partial row sums
+  mma::Flash f;
+  f.start(Qs);
 
   for (int panel = 0; panel < 2; ++panel) {
     const int nk = panel == 0 ? no : nt * S;
     const bf16* kp = panel == 0 ? ko : kg;
     const bf16* vp = panel == 0 ? vo : vg;
-    for (int j0 = 0; j0 < nk; j0 += kBK) {
+    for (int j0 = 0; j0 < nk; j0 += mma::kBK) {
       __syncthreads();  // the previous tile's readers are done
       auto row_of = [&](int r) -> long long {
         const int jj = j0 + r;
@@ -351,9 +282,15 @@ focal_attention_mma_kernel(const bf16* __restrict__ q,
         const int t = jj / S, s = jj % S;
         return ((((long long)b * heads + h) * nt + t) * nwin + w) * S + s;
       };
-      load_tile_bf16(Ks, kp, row_of);
-      load_tile_bf16(Vs, vp, row_of);
-      if (tid < kBK) {
+      mma::load_tile(Ks, [&](int r) -> const bf16* {
+        const long long row = row_of(r);
+        return row >= 0 ? kp + row * kHD : nullptr;
+      });
+      mma::load_tile(Vs, [&](int r) -> const bf16* {
+        const long long row = row_of(r);
+        return row >= 0 ? vp + row * kHD : nullptr;
+      });
+      if (tid < mma::kBK) {
         const int jj = j0 + tid;
         float bj = -INFINITY;
         if (jj < nk) {
@@ -363,100 +300,10 @@ focal_attention_mma_kernel(const bf16* __restrict__ q,
         Bs[tid] = bj;
       }
       __syncthreads();
-
-      // S (16 x 64) = Q K^T: 8 n-tiles of 8 keys, 8 k-steps of 16 dims
-      float s[kBK / 8][4];
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kHD / 32; ++kk) {
-          unsigned kb[4];
-          ldmatrix_x4(kb, Ks + (n * 8 + lr) * kLd + kk * 32 + 8 * lm);
-          mma_bf16(s[n], qa[2 * kk], kb[0], kb[1]);
-          mma_bf16(s[n], qa[2 * kk + 1], kb[2], kb[3]);
-        }
-      }
-
-      // online softmax over rows g (s[n][0..1]) and g + 8 (s[n][2..3])
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const float b0 = Bs[n * 8 + 2 * tg], b1 = Bs[n * 8 + 2 * tg + 1];
-        s[n][0] += b0;
-        s[n][1] += b1;
-        s[n][2] += b0;
-        s[n][3] += b1;
-        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-      }
-      float alpha[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m_r[i], mx[i]);
-        alpha[i] = __expf(m_r[i] - m_new);
-        m_r[i] = m_new;
-        l_r[i] *= alpha[i];
-      }
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        s[n][0] = __expf(s[n][0] - m_r[0]);
-        s[n][1] = __expf(s[n][1] - m_r[0]);
-        s[n][2] = __expf(s[n][2] - m_r[1]);
-        s[n][3] = __expf(s[n][3] - m_r[1]);
-        l_r[0] += s[n][0] + s[n][1];
-        l_r[1] += s[n][2] + s[n][3];
-      }
-#pragma unroll
-      for (int n = 0; n < kHD / 8; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
-
-      // O (16 x 128) += P (16 x 64) V: the logit tiles 2kb and 2kb + 1
-      // are the A fragment of key block kb
-#pragma unroll
-      for (int kb = 0; kb < kBK / 16; ++kb) {
-        const unsigned pa[4] = {
-            pack_bf16(s[2 * kb][0], s[2 * kb][1]),
-            pack_bf16(s[2 * kb][2], s[2 * kb][3]),
-            pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]),
-            pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3])};
-#pragma unroll
-        for (int np = 0; np < kHD / 16; ++np) {
-          unsigned vb[4];
-          ldmatrix_x4_trans(vb, Vs + (kb * 16 + lr + 8 * (lm & 1)) * kLd +
-                                    np * 16 + 8 * (lm >> 1));
-          mma_bf16(o[2 * np], pa, vb[0], vb[1]);
-          mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
-        }
-      }
+      f.tile(Ks, Vs, Bs);
     }
   }
-
-  // full row sums over the quad, then write rows g and g + 8
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-  }
-  const int ld = heads * kHD;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + warp * 16 + g + 8 * i;
-    if (r >= nq) continue;
-    const float inv = 1.f / l_r[i];
-    bf16* dst = out + ((long long)bw * nq + r) * ld + h * kHD + 2 * tg;
-#pragma unroll
-    for (int n = 0; n < kHD / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    }
-  }
+  f.finish(out, bw, q0, nq, heads * kHD, h * kHD);
 }
 
 template <typename T>
@@ -491,7 +338,8 @@ int launch_attention_mma(const void* q, const void* ko, const void* vo,
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || nq == 0) return (int)cudaGetLastError();
   const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
-  focal_attention_mma_kernel<<<grid, kMThreads, kMSmemBytes, stream>>>(
+  using mma::bf16;
+  focal_attention_mma_kernel<<<grid, mma::kThreads, kMSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(ko),
       static_cast<const bf16*>(vo), static_cast<const bf16*>(kg),
       static_cast<const bf16*>(vg), static_cast<const float*>(bias_o),

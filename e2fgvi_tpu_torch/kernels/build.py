@@ -1,14 +1,14 @@
 """Build and load the port's CUDA kernels (``e2fgvi_tpu_torch/csrc``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, and loaded with ``ctypes``. The
-library goes to ``build/`` at the repository root, named by a hash of the
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+process per source started together, linked into one shared library with
+a plain C interface, and loaded with ``ctypes``. The library goes to ``build/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 at once. torch.utils.cpp_extension is not used: including PyTorch's headers
 makes a build take minutes instead of seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers (kernels/deform.py, kernels/focal_attention.py) raise on nonzero.
+wrappers (kernels/*.py) raise on nonzero.
 """
 
 import ctypes
@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every entry point: pointers and the stream as c_void_p (a
@@ -33,6 +33,13 @@ _SIGNATURES = {
                             + [_F, _I, _P],
     "e2fgvi_flow_warp": [_I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "e2fgvi_focal_attention": [_I] + [_P] * 8 + [_I] * 9 + [_P],
+    "e2fgvi_band_sample": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
+    "e2fgvi_band_sample_cbatch": [_I] + [_P] * 5 + [_I] * 8 + [_P],
+    "e2fgvi_band_sample_xpair": [_P] * 5 + [_I] * 8 + [_P],
+    "e2fgvi_band_sample_cpair": [_P] * 5 + [_I] * 8 + [_P],
+    "e2fgvi_row_gather": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+    "e2fgvi_bilinear4_sample": [_P] * 4 + [_I] * 6 + [_P],
+    "e2fgvi_band_attention": [_P] * 5 + [_I] * 12 + [_F, _I, _P],
 }
 
 
@@ -60,8 +67,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libe2fgvi_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise on the first that fails. Returns
+    their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def build() -> tuple[Path, str]:
-    """Compile the kernels unless the library for these sources exists.
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc per source, all at once, then one link.
 
     Returns (library path, nvcc's output: ptxas register and spill counts,
     empty when nothing was compiled)."""
@@ -70,19 +92,16 @@ def build() -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp, *map(str, cu)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        log = _run_all([[nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", o,
+                          str(p)] for p, o in zip(cu, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                          *objs]])
+        os.replace(lib, out)
+    return out, log
 
 
 @functools.lru_cache(maxsize=1)

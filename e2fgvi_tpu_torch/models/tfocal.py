@@ -160,6 +160,28 @@ def _pooled_key_mask(nwh, nww, kh, kw, ph, pw):
 
 
 @lru_cache(maxsize=32)
+def _rolled_rects(wh, ww, eh, ew):
+    """The 4-rolled out-of-window key multiset as rectangles in window
+    coordinates, ((sy, sx, y0, y1, x0, x1), ...): each roll's valid
+    positions are one full-width row band and one partial column band. The
+    same multiset as _rolled_valid_idx up to order; a rectangle's key at
+    (y, x) is the token ((wy*wh + y - sy) mod H, (wx*ww + x - sx) mod W)."""
+    rects = []
+    for (sy, sx), (fy, fx) in zip(
+            ((-eh, -ew), (-eh, ew), (eh, -ew), (eh, ew)),
+            ((1, 1), (1, 0), (0, 1), (0, 0))):
+        if fy:      # the masked-out block occupies rows [0, wh-eh)
+            rows_full, rows_part = (wh - eh, wh), (0, wh - eh)
+        else:       # the masked-out block occupies rows [eh, wh)
+            rows_full, rows_part = (0, eh), (eh, wh)
+        cols_part = (ww - ew, ww) if fx else (0, ew)
+        rects.append((sy, sx, rows_full[0], rows_full[1], 0, ww))
+        rects.append((sy, sx, rows_part[0], rows_part[1],
+                      cols_part[0], cols_part[1]))
+    return tuple(r for r in rects if r[3] > r[2] and r[5] > r[4])
+
+
+@lru_cache(maxsize=32)
 def _key_gather_idx(h, w, wh, ww, eh, ew, pooled_geom):
     """Per-window key sources in [fine tokens (h*w) | pooled tokens |
     one zero slot]: own window, the 4-rolled out-of-window keys (torch.roll

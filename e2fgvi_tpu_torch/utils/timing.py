@@ -1,11 +1,31 @@
-"""Per-stage device time of the serving path, from CUDA events.
+"""Device time from CUDA events: per stage of the serving path
+(`StageTimer`), and per call of one function (`cuda_ms`).
 
 `start()` records an event; each `mark(name)` records another and charges
 the time since the previous event to `name`. Events ride the current
 stream, so nothing synchronizes until `totals()` reads them.
 """
 
+import statistics
+
 import torch
+
+
+def cuda_ms(fn, iters=10, warmup=2) -> float:
+    """Median device time of fn() in ms over `iters` calls after `warmup`,
+    each between two CUDA events on the current stream."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 class StageTimer:

@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from e2fgvi_tpu_torch.kernels import band_attention as ba
+from e2fgvi_tpu_torch.kernels import band_sampler as bs
 from e2fgvi_tpu_torch.kernels import deform
 from e2fgvi_tpu_torch.kernels import focal_attention as fa
+from e2fgvi_tpu_torch.kernels import gather
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +91,138 @@ def test_kernels_refuse_grad(gen):
         deform.flow_warp(x, torch.zeros((1, 4, 5, 2), device="cuda"))
     assert np.isfinite(deform.flow_warp(
         x.detach(), torch.zeros((1, 4, 5, 2), device="cuda")).cpu()).all()
+
+
+# ---------------------------------------------------------------------------
+# E1-E6: the experiments' kernels at small ragged shapes
+# ---------------------------------------------------------------------------
+
+def _band_inputs(gen, dtype, ng=3, k=2, cg=6, hp=7, wp=19, band=8):
+    """Positions that leave the band and the image."""
+    src = _randn(gen, ng, cg, hp + band, wp).to(dtype)
+    rows = torch.arange(hp, dtype=torch.float32, device="cuda")[:, None]
+    py = rows + (torch.rand((ng, k, hp, wp), generator=gen, device="cuda")
+                 * 2 - 1) * band
+    px = torch.rand((ng, k, hp, wp), generator=gen, device="cuda") \
+        * (wp + 6) - 3
+    mask = torch.rand((ng, k, hp, wp), generator=gen, device="cuda")
+    return src, py, px, mask, -(band // 2)
+
+
+def _close_bf16(got, want):
+    """Within one bfloat16 ulp of a bfloat16-rounded plain result."""
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cbatch", [False, True])
+def test_band_sample_matches_plain(gen, dtype, cbatch):
+    inputs = _band_inputs(gen, dtype)
+    kernel = bs.band_sample_cbatch if cbatch else bs.band_sample
+    plain = bs.band_sample_cbatch_plain if cbatch else bs.band_sample_plain
+    name = "band_sample_cbatch" if cbatch else "band_sample"
+    before = bs.LAUNCHES[name]
+    got = kernel(*inputs)
+    assert bs.LAUNCHES[name] == before + 1
+    want = plain(*inputs)
+    assert got.dtype == dtype and want.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _close_bf16(got, want)
+
+
+def test_packed_band_samplers_bit_equal_base(gen):
+    src, *rest = _band_inputs(gen, torch.bfloat16)
+    base = bs.band_sample(src, *rest)
+    assert torch.equal(bs.band_sample(src.float(), *rest,
+                                      out_dtype=torch.bfloat16), base)
+    assert torch.equal(bs.band_sample_xpair(bs.pack_xpairs(src), *rest),
+                       base)
+    assert torch.equal(bs.band_sample_cpair(bs.pack_cpairs(src), *rest),
+                       base)
+    # the packers agree with their CPU versions
+    assert torch.equal(bs.pack_xpairs(src).cpu(), bs.pack_xpairs(src.cpu()))
+    assert torch.equal(bs.pack_cpairs(src).cpu(), bs.pack_cpairs(src.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_matches_plain(gen, dtype):
+    p, c = 37, 24
+    tab = _randn(gen, p, c).to(dtype)
+    idx = torch.randint(0, p, (3, 5, c), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    got = gather.row_gather(tab, idx)
+    assert got.dtype == dtype
+    assert torch.equal(got, gather.row_gather_plain(tab, idx))
+
+
+def test_bilinear4_matches_plain(gen):
+    h, w, c, g = 7, 11, 24, 8
+    tab = _randn(gen, h * w, c)
+    py = torch.rand((2, 13, g), generator=gen, device="cuda") * (h + 3) - 2
+    px = torch.rand((2, 13, g), generator=gen, device="cuda") * (w + 3) - 2
+    torch.testing.assert_close(gather.bilinear4_sample(tab, py, px, h, w),
+                               gather.bilinear4_sample_plain(tab, py, px, h,
+                                                             w),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _attn_block(gen, b=2, t=3, h=10, w=18, c=256):
+    from e2fgvi_tpu_torch.models import tfocal
+    block = tfocal.TemporalFocalTransformerBlock(c, (5, 9), 64)
+    block.init_weights(torch.Generator().manual_seed(1))
+    block = block.cuda().to(torch.bfloat16).requires_grad_(False)
+    x = _randn(gen, b, t, h, w, c).to(torch.bfloat16)
+    return block, x, tfocal._pool_level(block, x, (5, 9))
+
+
+@pytest.mark.parametrize("frame_valid", [False, True])
+def test_band_attention_matches_plain_and_k3(gen, frame_valid):
+    from e2fgvi_tpu_torch.models import tfocal
+    block, x, pooled = _attn_block(gen)
+    fv = None
+    if frame_valid:
+        fv = torch.ones((2, 3), dtype=torch.bool, device="cuda")
+        fv[0, -1] = False
+        fv[1, -2:] = False
+    args = (block.attn, x, pooled, 2, (5, 9), (2, 4))
+    before = ba.LAUNCHES["band_attention"]
+    got = ba.band_attention(*args, frame_valid=fv).float()
+    assert ba.LAUNCHES["band_attention"] == before + 1
+    want = ba.band_attention_plain(block.attn, x.float(), pooled.float(),
+                                   *args[3:], frame_valid=fv).float()
+    k3 = tfocal.window_attention(*args, frame_valid=fv).float()
+    if fv is not None:
+        valid = fv.repeat_interleave(45, 1).repeat_interleave(4, 0)[..., None]
+        got, want, k3 = (torch.where(valid, z, 0.0) for z in (got, want, k3))
+    scale = want.abs().max()
+    assert (got - want).abs().max() / scale < 5e-2
+    assert (got - k3).abs().max() / scale < 5e-2
+
+
+def test_new_kernels_refuse_grad(gen):
+    src, *rest = _band_inputs(gen, torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        bs.band_sample(src.requires_grad_(), *rest)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        bs.band_sample_cbatch(src, *rest)
+    py = rest[0].clone().requires_grad_()
+    src16 = src.detach().bfloat16()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        bs.band_sample_xpair(bs.pack_xpairs(src16), py, *rest[1:])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        bs.band_sample_cpair(bs.pack_cpairs(src16), py, *rest[1:])
+    tab = _randn(gen, 5, 8).requires_grad_()
+    idx = torch.zeros((2, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        gather.row_gather(tab, idx)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        gather.bilinear4_sample(_randn(gen, 6, 8).requires_grad_(),
+                                torch.zeros((1, 2, 4), device="cuda"),
+                                torch.zeros((1, 2, 4), device="cuda"), 2, 3)
+    block, x, pooled = _attn_block(gen)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ba.band_attention(block.attn, x.requires_grad_(), pooled, 2, (5, 9),
+                          (2, 4))
