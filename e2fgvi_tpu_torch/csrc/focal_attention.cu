@@ -11,17 +11,41 @@
 // GEMM.
 //
 // Where the TPU kernel held a whole window's logits in VMEM (~100 MB
-// scoped), a Hopper block has at most 227 KB of shared memory, so this is a
-// flash-style loop: one block per (b, window, head, 64-query tile) walks
-// 64-key tiles of the own panel and then of the gathered panel, keeping a
-// running max and sum per query row (online softmax) and the 64x128 output
-// accumulator in registers. What bounds it on the H100 at serving shapes
-// (B=14, 16 windows, 4 heads, nq=765, 765 + 17*125 keys, hd=128): the
-// ~1.0 TFLOP of q.k and p.v per call, done here with float32 FMAs from
-// shared memory (each thread owns a 4x4 logit tile and a 4x8 output tile,
-// read as 16-byte vectors without bank conflicts) for float32, the parity
-// path, and on tensor cores (mma.sync, flash_mma.cuh) for bfloat16, the
-// serving path.
+// scoped), a Hopper block has at most 227 KB of shared memory, so both
+// dtypes run a flash loop: a block walks 64-key tiles of the own panel and
+// then of the gathered panel, with a running max and sum per query row
+// (online softmax). The work at serving shapes (B=14, 16 windows, 4 heads,
+// nq=765, 765 + 17*125 keys, hd=128) is ~1.0 TFLOP of q.k and p.v per
+// call, so both dtypes run it on tensor cores with mma.sync:
+//
+// - bfloat16, the serving path: m16n8k16 (flash_mma.cuh, shared with E2).
+// - float32, the parity path: 3xTF32 on m16n8k8 (this file). One TF32 pass
+//   keeps 10 mantissa bits and lands ~1e-4 off; the port pins full float32
+//   precision. Each operand x splits into big = rna_tf32(x) and
+//   small = rna_tf32(x - big), and each product is small*big + big*small +
+//   big*big in float32 (small*small, ~2^-22 relative, is dropped). The
+//   tensor cores truncate every float32 accumulation toward zero, so the
+//   error also grows with the mma steps chained into one accumulator: the
+//   logits keep big*big apart from the corrections, and each key tile's
+//   P V sum starts from zero and joins O by a rounded add. Together this
+//   lands closer to float64 than the plain float32 version does.
+//   What bounds it: the TF32 work is 3x (3.0 TFLOP per serving call), and
+//   every warp splits the K, V, Q and P values it reads, ~5 instructions
+//   per value, 4 of them integer: the split's integer work and mma.sync's
+//   TF32 rate share the time, not the loads. The design:
+//   * 128 queries on 8 warps per block (16 rows each): a K/V tile in shared
+//     memory serves 128 queries; 8 warps are resident per SM.
+//   * K/V tiles land by 16-byte cp.async copies (the biases by 4-byte
+//     ones), double-buffered: tile j+1 loads while tile j runs; one
+//     barrier per tile.
+//   * The logits, softmax state and the 16x128 output accumulator stay in
+//     registers. P never goes through shared memory: the m16n8 accumulator
+//     gives a thread keys 2t, 2t+1 and the tf32 A fragment wants k-columns
+//     t, t+4, so V's rows are read in that permuted order (the sum over
+//     keys is order-free). Likewise Q/K dims and V/output columns are
+//     permuted so that every fragment load is one 16-byte ld.shared.
+//   * Tiles are 128-float rows with an XOR swizzle of the 16-byte chunk, so
+//     all three fragment loads are free of bank conflicts.
 // Reading keys in place, with no gather, is E2 (band_attention.cu).
 //
 // The biases are finite (-100 outside the pooled grid, ln(multiplicity) on
@@ -35,198 +59,346 @@
 
 namespace e2fgvi {
 
-constexpr int kBQ = 64;         // queries per block
-constexpr int kBK = 64;         // keys per tile
-constexpr int kHD = 128;        // head width
-constexpr int kThreads = 256;
-constexpr int kRowStride = kHD + 4;  // Q/K/V rows: 16-byte aligned, no bank conflicts
-constexpr int kPStride = kBK + 4;
-constexpr int kSmemFloats =
-    3 * 64 * kRowStride + kBQ * kPStride + kBK;
-constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
+constexpr int kHD = 128;  // head width
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-focal_attention_kernel(const T* __restrict__ q, const T* __restrict__ ko,
-                       const T* __restrict__ vo, const T* __restrict__ kg,
-                       const T* __restrict__ vg,
-                       const float* __restrict__ bias_o,
-                       const float* __restrict__ bias_g, T* __restrict__ out,
-                       int heads, int nwin, int nt, int S, int nq, int no) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                      // [kBQ][kRowStride]
-  float* Ks = Qs + kBQ * kRowStride;     // [kBK][kRowStride]
-  float* Vs = Ks + kBK * kRowStride;     // [kBK][kRowStride]
-  float* Ps = Vs + kBK * kRowStride;     // [kBQ][kPStride]
-  float* Bs = Ps + kBQ * kPStride;       // [kBK]
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 flash loop
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+constexpr int kBQ = 128;            // queries per block: 8 warps x 16 rows
+constexpr int kBK = 64;             // keys per tile
+constexpr int kThreads = kBQ / 16 * 32;
+constexpr int kRowStep = kThreads / 32;  // rows per pass of the copies
+constexpr int kTile = kBK * kHD;    // floats in one K or V stage
+constexpr int kSmemBytes =
+    (kBQ * kHD + 2 * (2 * kTile + kBK)) * (int)sizeof(float);  // 197,120
+
+// Float offset of 16-byte chunk `chunk` (0..31) of row r in a tile of
+// 128-float rows. The chunk index is XORed with r's low three bits
+// (bit 0 -> chunk bit 2, bits 1-2 -> chunk bits 0-1): the Q/K loads (rows
+// g, chunk 4c+t) and the V loads (rows 2t+j, chunk 4g+qq) then each hit 8
+// distinct 4-bank groups per quarter warp.
+__device__ __forceinline__ int swz(int r, int chunk) {
+  return r * kHD + ((chunk ^ (((r & 1) << 2) | ((r >> 1) & 3))) << 2);
+}
+
+// 16-byte copy to shared memory; src_ok false writes zeros and reads
+// nothing from src
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool src_ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool src_ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// cvt.rna.tf32.f32 (nearest, ties away from zero) on finite x, in two
+// integer instructions: ptxas expands the cvt with NaN/Inf checks into
+// about five
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both tf32 (small*small dropped by the caller)
+struct Split {
+  unsigned big, small;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const unsigned big = to_tf32(x);
+  return {big, to_tf32(x - __uint_as_float(big))};
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0,
+                                         unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// a * b in 3xTF32 (a: the A fragment a0..a3, b = (b0, b1)): hi += big*big,
+// lo += small*big + big*small. The tensor cores truncate each float32
+// accumulation toward zero, so the error grows with the number of mma
+// steps chained into one accumulator at full magnitude; the logits keep
+// the corrections (~2^-11 of it) apart, which leaves big*big one step per
+// k-step. P V passes one accumulator as both: its chains end every tile.
+__device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
+                                     const Split (&a)[4], Split b0,
+                                     Split b1) {
+  mma_tf32(lo, a[0].small, a[1].small, a[2].small, a[3].small, b0.big,
+           b1.big);
+  mma_tf32(lo, a[0].big, a[1].big, a[2].big, a[3].big, b0.small, b1.small);
+  mma_tf32(hi, a[0].big, a[1].big, a[2].big, a[3].big, b0.big, b1.big);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+focal_attention_tf32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ ko,
+                            const float* __restrict__ vo,
+                            const float* __restrict__ kg,
+                            const float* __restrict__ vg,
+                            const float* __restrict__ bias_o,
+                            const float* __restrict__ bias_g,
+                            float* __restrict__ out, int heads, int nwin,
+                            int nt, int S, int nq, int no) {
+  extern __shared__ __align__(128) float smem[];
+  float* Qs = smem;                   // [kBQ][kHD], swizzled
+  float* Ks = Qs + kBQ * kHD;         // [2][kBK][kHD], swizzled
+  float* Vs = Ks + 2 * kTile;         // [2][kBK][kHD], swizzled
+  float* Bs = Vs + 2 * kTile;         // [2][kBK]
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 4;   // query rows tr*4 .. tr*4+3
-  const int tc = tid & 15;   // logit cols tc + 16*c; output cols tc*4 (+64)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
-  const int bw = blockIdx.z;             // b * nwin + w
+  const int bw = blockIdx.z;              // b * nwin + w
   const int b = bw / nwin, w = bw % nwin;
   const long long bhw = ((long long)b * heads + h) * nwin + w;
+  const int ng = nt * S;
+  const int tiles_o = (no + kBK - 1) / kBK;
+  const int tiles = tiles_o + (ng + kBK - 1) / kBK;
 
-  const T* qp = q + (bhw * nq + q0) * kHD;
-  for (int e = tid; e < kBQ * kHD; e += kThreads) {
-    const int r = e / kHD, d = e % kHD;
-    Qs[r * kRowStride + d] =
-        (q0 + r < nq) ? to_f32(qp[(long long)r * kHD + d]) : 0.f;
+  // the copies: thread tid moves chunk tid % 32 of rows
+  // tid / 32 + kRowStep * i
+  const int cc = tid & 31, cr = tid >> 5;
+  for (int i = 0; i < kBQ / kRowStep; ++i) {
+    const int r = cr + kRowStep * i;
+    const bool ok = q0 + r < nq;
+    cp_async16(Qs + swz(r, cc), ok ? q + (bhw * nq + q0 + r) * kHD + cc * 4
+                                   : q, ok);
   }
-
-  float m_i[4], l_i[4], o[4][8];
+  auto load_tile = [&](int it, int st) {
+    const bool own = it < tiles_o;
+    const int j0 = (own ? it : it - tiles_o) * kBK;
+    const int nk = own ? no : ng;
+    const float* kp = own ? ko : kg;
+    const float* vp = own ? vo : vg;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_i[a] = -INFINITY;
-    l_i[a] = 0.f;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) o[a][u] = 0.f;
-  }
-
-  for (int panel = 0; panel < 2; ++panel) {
-    const int nk = panel == 0 ? no : nt * S;
-    const T* kp = panel == 0 ? ko : kg;
-    const T* vp = panel == 0 ? vo : vg;
-    for (int j0 = 0; j0 < nk; j0 += kBK) {
-      __syncthreads();  // the previous tile's readers are done
-      for (int e = tid; e < kBK * kHD; e += kThreads) {
-        const int j = e / kHD, d = e % kHD;
-        const int jj = j0 + j;
-        float kv = 0.f, vv = 0.f;
-        if (jj < nk) {
-          long long row;
-          if (panel == 0) {
-            row = bhw * no + jj;
-          } else {
-            const int t = jj / S, s = jj % S;
-            row = ((((long long)b * heads + h) * nt + t) * nwin + w) * S + s;
-          }
-          kv = to_f32(kp[row * kHD + d]);
-          vv = to_f32(vp[row * kHD + d]);
-        }
-        Ks[j * kRowStride + d] = kv;
-        Vs[j * kRowStride + d] = vv;
-      }
-      if (tid < kBK) {
-        const int jj = j0 + tid;
-        float bj = -INFINITY;
-        if (jj < nk) {
-          bj = panel == 0 ? bias_o[(long long)b * no + jj]
-                          : bias_g[(long long)bw * nt * S + jj];
-        }
-        Bs[tid] = bj;
-      }
-      __syncthreads();
-
-      float s[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < kHD; d += 4) {
-        float4 qv[4], kv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          qv[a] = *reinterpret_cast<const float4*>(
-              &Qs[(tr * 4 + a) * kRowStride + d]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          kv[c] = *reinterpret_cast<const float4*>(
-              &Ks[(tc + 16 * c) * kRowStride + d]);
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            float acc = s[a][c];
-            acc = fmaf(qv[a].x, kv[c].x, acc);
-            acc = fmaf(qv[a].y, kv[c].y, acc);
-            acc = fmaf(qv[a].z, kv[c].z, acc);
-            acc = fmaf(qv[a].w, kv[c].w, acc);
-            s[a][c] = acc;
-          }
-      }
-
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[a][c] += Bs[tc + 16 * c];
-          mx = fmaxf(mx, s[a][c]);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_new = fmaxf(m_i[a], mx);
-        const float alpha = __expf(m_i[a] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float p = __expf(s[a][c] - m_new);
-          Ps[(tr * 4 + a) * kPStride + tc + 16 * c] = p;
-          rs += p;
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        l_i[a] = l_i[a] * alpha + rs;
-        m_i[a] = m_new;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) o[a][u] *= alpha;
-      }
-      __syncthreads();
-
-      // keys past the panel's end have p == 0 and zero rows in Vs
-#pragma unroll 2
-      for (int j = 0; j < kBK; j += 4) {
-        float4 pv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          pv[a] = *reinterpret_cast<const float4*>(
-              &Ps[(tr * 4 + a) * kPStride + j]);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const float4 v0 = *reinterpret_cast<const float4*>(
-              &Vs[(j + jj) * kRowStride + tc * 4]);
-          const float4 v1 = *reinterpret_cast<const float4*>(
-              &Vs[(j + jj) * kRowStride + 64 + tc * 4]);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float p = jj == 0 ? pv[a].x
-                          : jj == 1 ? pv[a].y
-                          : jj == 2 ? pv[a].z
-                                    : pv[a].w;
-            o[a][0] = fmaf(p, v0.x, o[a][0]);
-            o[a][1] = fmaf(p, v0.y, o[a][1]);
-            o[a][2] = fmaf(p, v0.z, o[a][2]);
-            o[a][3] = fmaf(p, v0.w, o[a][3]);
-            o[a][4] = fmaf(p, v1.x, o[a][4]);
-            o[a][5] = fmaf(p, v1.y, o[a][5]);
-            o[a][6] = fmaf(p, v1.z, o[a][6]);
-            o[a][7] = fmaf(p, v1.w, o[a][7]);
-          }
+    for (int i = 0; i < kBK / kRowStep; ++i) {
+      const int r = cr + kRowStep * i;
+      const int jj = j0 + r;
+      const bool ok = jj < nk;
+      long long row = 0;
+      if (ok) {
+        if (own) {
+          row = bhw * no + jj;
+        } else {
+          const int tt = jj / S, s = jj - tt * S;
+          row = ((((long long)b * heads + h) * nt + tt) * nwin + w) * S + s;
         }
       }
+      const long long off = row * kHD + cc * 4;
+      cp_async16(Ks + st * kTile + swz(r, cc), kp + off, ok);
+      cp_async16(Vs + st * kTile + swz(r, cc), vp + off, ok);
+    }
+    if (tid < kBK) {
+      const int jj = j0 + tid;
+      const bool ok = jj < nk;
+      const float* bp = own ? bias_o + (long long)b * no
+                            : bias_g + (long long)bw * ng;
+      cp_async4(Bs + st * kBK + tid, ok ? bp + jj : bp, ok);
+    }
+  };
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // Per-thread fragment offsets. Q and K: row g (+8 for Q's second half),
+  // dims 16c + 4t .. +3 of 16-dim chunk c; with the swizzle the chunk is
+  // 4c + t XOR f(g), f(g) = ((g & 1) << 2) | (g >> 1): even and odd c take
+  // two bases. V: rows 2t + j of each 8-key block, columns 16g + 4q .. +3.
+  const int fq = ((g & 1) << 2) | (g >> 1);
+  const int qk_base = g * kHD + ((t ^ (fq & 3)) << 2);
+  const int qk_even = qk_base + ((fq & 4) << 2);
+  const int qk_odd = qk_base - ((fq & 4) << 2);
+  const float* Qw = Qs + warp * 16 * kHD;
+
+  float o[kHD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kHD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+
+  for (int it = 0; it < tiles; ++it) {
+    // tile it (and Q) has landed and every warp is done with tile it - 1,
+    // whose stage tile it + 1 now overwrites
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < tiles) load_tile(it + 1, (it + 1) & 1);
+    cp_async_commit();
+
+    const int st = it & 1;
+    const float* Kt = Ks + st * kTile;
+    const float* Vt = Vs + st * kTile;
+    const float* Bt = Bs + st * kBK;
+    const int lim = it < tiles_o ? no - it * kBK : ng - (it - tiles_o) * kBK;
+
+    // S (16 x 64) = Q K^T. In 16-dim chunk c, k-step 0 takes dims
+    // 16c + 4t (A/B column t) and 16c + 4t + 1 (column t + 4), k-step 1
+    // dims 16c + 4t + 2 and + 3: one float4 feeds both k-steps.
+    float s[kBK / 8][4] = {}, sl[kBK / 8][4] = {};
+#pragma unroll
+    for (int c = 0; c < kHD / 16; ++c) {
+      const int off = ((c & 1) ? qk_odd : qk_even) + c * 16;
+      const float4 qa = *reinterpret_cast<const float4*>(Qw + off);
+      const float4 qb = *reinterpret_cast<const float4*>(Qw + 8 * kHD + off);
+      const Split a0[4] = {split(qa.x), split(qb.x), split(qa.y), split(qb.y)};
+      const Split a1[4] = {split(qa.z), split(qb.z), split(qa.w), split(qb.w)};
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(Kt + n * 8 * kHD + off);
+        mma3(s[n], sl[n], a0, split(kv.x), split(kv.y));
+        mma3(s[n], sl[n], a1, split(kv.z), split(kv.w));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[n][k] += sl[n][k];
+
+    // online softmax over rows g (s[n][0..1]) and g + 8 (s[n][2..3]);
+    // key n*8 + 2t (+1) of the tile, -inf past the panel's end
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const int k0 = n * 8 + 2 * t;
+      const float b0 = k0 < lim ? Bt[k0] : -INFINITY;
+      const float b1 = k0 + 1 < lim ? Bt[k0 + 1] : -INFINITY;
+      s[n][0] += b0;
+      s[n][1] += b1;
+      s[n][2] += b0;
+      s[n][3] += b1;
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      alpha[i] = __expf(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      s[n][0] = __expf(s[n][0] - m_r[0]);
+      s[n][1] = __expf(s[n][1] - m_r[0]);
+      s[n][2] = __expf(s[n][2] - m_r[1]);
+      s[n][3] = __expf(s[n][3] - m_r[1]);
+      l_r[0] += s[n][0] + s[n][1];
+      l_r[1] += s[n][2] + s[n][3];
+    }
+#pragma unroll
+    for (int n = 0; n < kHD / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O (16 x 128) += P (16 x 64) V. Key block n: A column t is key
+    // n*8 + 2t (s[n][0], s[n][2]), column t + 4 key n*8 + 2t + 1, so B row
+    // t is V row n*8 + 2t and row t + 4 is V row n*8 + 2t + 1. B column g
+    // of output tile np is V column 16g + np: a thread's float4 qq of a V
+    // row holds its B values for np = 4qq .. 4qq + 3. The tile's sum for
+    // those 4 output tiles builds in a fresh accumulator (24 mma steps) and
+    // joins O by a rounded add, so no accumulator chains mma steps across
+    // tiles.
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      // rows 2t (j = 0) and 2t + 1 (j = 1) of a block: f = (j << 2) | t
+      const int ch = 4 * g + qq;
+      const float* V0 = Vt + 2 * t * kHD + ((ch ^ t) << 2);
+      const float* V1 = Vt + (2 * t + 1) * kHD + ((ch ^ (4 | t)) << 2);
+      float acc[4][4] = {};
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+        const float4 va = *reinterpret_cast<const float4*>(V0 + n * 8 * kHD);
+        const float4 vb = *reinterpret_cast<const float4*>(V1 + n * 8 * kHD);
+        const Split pn[4] = {split(s[n][0]), split(s[n][2]), split(s[n][1]),
+                             split(s[n][3])};
+        mma3(acc[0], acc[0], pn, split(va.x), split(vb.x));
+        mma3(acc[1], acc[1], pn, split(va.y), split(vb.y));
+        mma3(acc[2], acc[2], pn, split(va.z), split(vb.z));
+        mma3(acc[3], acc[3], pn, split(va.w), split(vb.w));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[4 * qq + e][k] += acc[e][k];
     }
   }
 
+  // o[np][0..1] are row g, output columns 32t + np and 32t + 16 + np
+  // (B column 2t, 2t + 1 of tile np); [2..3] the same for row g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
   const int ld = heads * kHD;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = q0 + tr * 4 + a;
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + warp * 16 + g + 8 * i;
     if (r >= nq) continue;
-    const float inv = 1.f / l_i[a];
-    T* op = out + ((long long)bw * nq + r) * ld + h * kHD;
+    const float inv = 1.f / l_r[i];
+    float* dst = out + ((long long)bw * nq + r) * ld + h * kHD + 32 * t;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      op[tc * 4 + u] = from_f32<T>(o[a][u] * inv);
-      op[64 + tc * 4 + u] = from_f32<T>(o[a][4 + u] * inv);
+    for (int qq = 0; qq < 4; ++qq) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        *reinterpret_cast<float4*>(dst + 16 * j + 4 * qq) = make_float4(
+            o[4 * qq][2 * i + j] * inv, o[4 * qq + 1][2 * i + j] * inv,
+            o[4 * qq + 2][2 * i + j] * inv, o[4 * qq + 3][2 * i + j] * inv);
+      }
     }
   }
 }
+
+int launch(const void* q, const void* ko, const void* vo, const void* kg,
+           const void* vg, const void* bias_o, const void* bias_g, void* out,
+           int B, int heads, int nwin, int nt, int S, int nq, int no,
+           cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      focal_attention_tf32_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || nq == 0) return (int)cudaGetLastError();
+  const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
+  focal_attention_tf32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(ko),
+      static_cast<const float*>(vo), static_cast<const float*>(kg),
+      static_cast<const float*>(vg), static_cast<const float*>(bias_o),
+      static_cast<const float*>(bias_g), static_cast<float*>(out), heads,
+      nwin, nt, S, nq, no);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bfloat16: the same flash loop on tensor cores, FlashAttention-2 style
@@ -306,27 +478,6 @@ focal_attention_mma_kernel(const mma::bf16* __restrict__ q,
   f.finish(out, bw, q0, nq, heads * kHD, h * kHD);
 }
 
-template <typename T>
-int launch_attention(const void* q, const void* ko, const void* vo,
-                     const void* kg, const void* vg, const void* bias_o,
-                     const void* bias_g, void* out, int B, int heads,
-                     int nwin, int nt, int S, int nq, int no,
-                     cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      focal_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0 || nq == 0) return (int)cudaGetLastError();
-  const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
-  focal_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ko),
-      static_cast<const T*>(vo), static_cast<const T*>(kg),
-      static_cast<const T*>(vg), static_cast<const float*>(bias_o),
-      static_cast<const float*>(bias_g), static_cast<T*>(out), heads, nwin,
-      nt, S, nq, no);
-  return (int)cudaGetLastError();
-}
-
 int launch_attention_mma(const void* q, const void* ko, const void* vo,
                          const void* kg, const void* vg, const void* bias_o,
                          const void* bias_g, void* out, int B, int heads,
@@ -337,7 +488,7 @@ int launch_attention_mma(const void* q, const void* ko, const void* vo,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || nq == 0) return (int)cudaGetLastError();
-  const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
+  const dim3 grid((nq + mma::kBQ - 1) / mma::kBQ, heads, B * nwin);
   using mma::bf16;
   focal_attention_mma_kernel<<<grid, mma::kThreads, kMSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(ko),
@@ -352,8 +503,8 @@ int launch_attention_mma(const void* q, const void* ko, const void* vo,
 
 // Plain C entry point, loaded with ctypes (kernels/build.py). Makes
 // `device` current for this library's runtime, launches on `stream` and
-// returns cudaGetLastError(); hd must be 128. bfloat16 runs the
-// tensor-core kernel, float32 the FMA kernel.
+// returns cudaGetLastError(); hd must be 128. bfloat16 runs the m16n8k16
+// kernel, float32 the 3xTF32 kernel.
 extern "C" int e2fgvi_focal_attention(int dtype, const void* q,
                                       const void* ko, const void* vo,
                                       const void* kg, const void* vg,
@@ -371,7 +522,6 @@ extern "C" int e2fgvi_focal_attention(int dtype, const void* q,
                                         out, B, heads, nwin, nt, S, nq, no,
                                         s);
   }
-  return e2fgvi::launch_attention<float>(q, ko, vo, kg, vg, bias_o, bias_g,
-                                         out, B, heads, nwin, nt, S, nq, no,
-                                         s);
+  return e2fgvi::tf32::launch(q, ko, vo, kg, vg, bias_o, bias_g, out, B,
+                              heads, nwin, nt, S, nq, no, s);
 }

@@ -41,6 +41,51 @@ def test_k3_plain_matches_fused_interpret_and_xla(rng):
     np.testing.assert_allclose(got, np.asarray(want_x), **TOL)
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: nearest tf32 (10 mantissa bits), ties away."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000))
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul(a, b, form):
+    """a @ b with float32 sums: plain float32, or tensor-core products of
+    tf32 operands (exact in float32), one pass or three."""
+    if form == "f32":
+        return a @ b
+    a_big, b_big = _tf32(a), _tf32(b)
+    if form == "1xtf32":
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def test_k3_3xtf32_split_keeps_float32_accuracy(rng):
+    """The float32 K3 kernel's precision argument: splitting each operand
+    into big + small tf32 parts keeps softmax(q k^T + bias) v as close to
+    float64 as float32 products are; one TF32 pass does not."""
+    q, ko, vo, kg, vg, bias_o, bias_g, _, _ = _kernel_inputs(
+        rng, b=1, heads=1, nwin=1, t=2, s=100, hd=128, nq=64, no=100)
+    q = q[0] * np.float32(128 ** -0.5)
+    k = np.concatenate([ko[0], kg[0, :, 0].reshape(-1, 128)])
+    v = np.concatenate([vo[0], vg[0, :, 0].reshape(-1, 128)])
+    bias = np.concatenate([bias_o[0, 0], bias_g[0, 0]])
+
+    def attend(form):
+        s = _matmul(q, k.T, form) + bias
+        p = np.exp(s - s.max(-1, keepdims=True))
+        return _matmul(p, v, form) / p.sum(-1, keepdims=True)
+
+    s64 = q.astype(np.float64) @ k.T.astype(np.float64) + bias
+    p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+    want = p64 @ v.astype(np.float64) / p64.sum(-1, keepdims=True)
+    err = {f: np.abs(attend(f) - want).max()
+           for f in ("f32", "3xtf32", "1xtf32")}
+    assert attend("3xtf32").dtype == np.float32
+    assert err["3xtf32"] <= 2 * err["f32"], err
+    assert err["1xtf32"] >= 20 * err["f32"], err
+
+
 def test_k3_plain_ragged_shapes(rng):
     """The port pads neither queries nor keys: odd counts everywhere."""
     *arrs, b, heads = _kernel_inputs(rng, b=2, heads=2, nwin=3, t=3, s=7,

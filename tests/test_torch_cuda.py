@@ -62,25 +62,48 @@ def test_flow_warp_matches_plain(gen, c):
                                rtol=1e-5, atol=1e-4)
 
 
+# (nq, no, t, s, padded frames): ragged tiles; a panel that ends one key
+# into a 64-key tile (no 65, t*s 129); one query, and one past a query
+# block (64 rows in bf16, 128 in float32); every frame padded but the last
+# (own keys 45 per frame), so the first key tile of each panel is all
+# padding
+_K3_CASES = {"ragged": (70, 70, 3, 37, "last"),
+             "one_key_into_tile": (70, 65, 3, 43, "last"),
+             "nq_1": (1, 70, 3, 37, "last"),
+             "nq_65": (65, 70, 3, 37, "last"),
+             "nq_129": (129, 70, 3, 37, "last"),
+             "all_but_one_padded": (135, 135, 3, 37, "all_but_last")}
+
+
+@pytest.mark.parametrize("case", list(_K3_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_focal_attention_matches_plain(gen, dtype):
-    b, heads, nwin, t, s, nq, hd = 2, 2, 3, 3, 37, 70, 128
+def test_focal_attention_matches_plain(gen, dtype, case):
+    nq, no, t, s, padded = _K3_CASES[case]
+    b, heads, nwin, hd = 2, 2, 3, 128
     q = _randn(gen, b * heads * nwin, nq, hd, std=hd ** -0.5).to(dtype)
-    ko, vo = (_randn(gen, b * heads * nwin, nq, hd).to(dtype)
+    ko, vo = (_randn(gen, b * heads * nwin, no, hd).to(dtype)
               for _ in range(2))
     kg, vg = (_randn(gen, b * heads, t, nwin, s, hd).to(dtype)
               for _ in range(2))
-    bias_o = torch.zeros((b, 1, nq), device="cuda")
-    bias_o[1, :, -20:] = -1e9
+    bias_o = torch.zeros((b, 1, no), device="cuda")
     bias_g = torch.zeros((b * nwin, 1, t * s), device="cuda")
     bias_g[:, :, 5:9] = -100.0
-    bias_g[:, :, -s:] = -1e9
+    if padded == "last":
+        bias_o[1, :, -20:] = -1e9
+        bias_g[:, :, -s:] = -1e9
+    else:
+        bias_o[:, :, :-45] = -1e9
+        bias_g[:, :, :-s] = -1e9
+    before = fa.LAUNCHES["focal_attention"]
     got = fa.focal_attention(q, ko, vo, kg, vg, bias_o, bias_g, b, heads)
+    assert fa.LAUNCHES["focal_attention"] == before + 1
     want = fa.focal_attention_plain(q.float(), ko.float(), vo.float(),
                                     kg.float(), vg.float(), bias_o, bias_g,
                                     b, heads)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        # 3xTF32 keeps float32 accuracy; one TF32 pass would be ~1e-4 off
+        assert (got - want).abs().max() <= 1e-5
     else:
         assert (got.float() - want).abs().max() / want.abs().max() < 5e-2
 
