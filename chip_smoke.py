@@ -26,9 +26,24 @@ Phases, one line each (any failed check raises and exits nonzero):
               the four experiment entry points
               (e2fgvi_tpu_torch.experiments) with launch counts, and E2
               against K3 on one random block
-The second-to-last line is the kernels JSON; the last line is
-{"ok": true, "device": {...}}. Weights are the golden's deterministic
-random weights; nothing is downloaded.
+  7. hq       K1, K2 and K3 against their plain versions at the HQ model's
+              shapes: 864x480 (120x216 maps; K3 on 64 windows, S=149, at
+              B=2 and timed alone at B=14) and 1296x720 (K3 on 144
+              windows, S=153, at B=1; K1/K2 in bfloat16 at B=14); the HQ
+              generator in float32 against tests/goldens/generator_hq.npz;
+              HQ serving (bfloat16, max_batch 14) on 2 synthetic 70-frame
+              864x480 videos, one window batch against the float32 plain
+              path on the CPU, one 20-frame 1280x720 video (mirror-padded
+              to 1296x720), and one 20-frame 864x480 video at the CLI's
+              defaults (float32, max_batch 4)
+  8. evaluate the evaluate entry point (float32) on a synthetic DAVIS-layout
+              set of 3 videos of 24 frames with a seeded I3D: PSNR/SSIM in
+              range, a finite VFID from I3D on the card, the metrics file,
+              launches of K1-K3; I3D on the card against the CPU
+Each phase prints its seconds. The second-to-last line is the kernels JSON;
+the last line is {"ok": true, "device": {...}}. Weights are the goldens'
+deterministic random weights and a seeded I3D; nothing is downloaded, and
+JAX is never imported.
 """
 
 import ast
@@ -37,12 +52,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, H, W = 14, 60, 108          # serving: windows per batch, quarter-res map
+HQ_MAP = (120, 216)            # the HQ model's quarter-res map at 864x480
+HQ720_MAP = (180, 324)         # ... at 1280x720, mirror-padded to 1296x720
 # float32 (rtol, atol) against the plain version; bfloat16 max error
 # relative to the float32 plain result's scale. The gathers are exact; the
 # banded samplers and E4 sum the plain version's terms in its order; the
@@ -83,6 +101,13 @@ REPLACES = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def phase_end(name, t0):
+    """Log the phase's seconds since t0; return the time now."""
+    now = time.perf_counter()
+    log(f"phase {name}: {now - t0:.1f} s")
+    return now
 
 
 def fill_weight(key, shape, rng):
@@ -147,17 +172,28 @@ def compare(name, kernel_fn, plain_fn, make_inputs, timed=True,
     return res
 
 
-def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
-    """K1, K2 and K3 against their plain versions at serving shapes."""
+def _randn_fn(dev, seed=0):
     import torch
-    from e2fgvi_tpu_torch.kernels import deform
-    from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    from e2fgvi_tpu_torch.models import tfocal
-
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=dev) * std
+    return randn
+
+
+def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
+    """K1, K2 and K3 against their plain versions at serving shapes."""
+    res = check_k1k2(dev, b, h, w, timed)
+    res["focal_attention"], _ = check_k3(dev, b, h, w, t, timed)
+    return res
+
+
+def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16")):
+    """K1 and K2 against their plain versions on b quarter-res maps of
+    h x w (K2's flow composition in float32 only)."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import deform
+    randn = _randn_fn(dev)
 
     # random heads (std 1): offsets differ per group and tap; some flows
     # push samples far outside the image
@@ -174,7 +210,7 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     res = {}
     res["deform_im2col"] = compare(
         "deform_im2col", deform.modulated_deform_conv2d_head,
-        deform.deform_conv_head_plain, k1_inputs, timed)
+        deform.deform_conv_head_plain, k1_inputs, timed, dtypes)
 
     # K2 at its two serving shapes: the pair of 128-channel feature warps
     # (2B maps) and the 2-channel flow composition (B maps, float32 only)
@@ -182,28 +218,39 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     xfeat = randn(2 * b, h, w, 128)
     res["flow_warp"] = compare(
         "flow_warp", deform.flow_warp, deform.flow_warp_plain,
-        lambda dt: (xfeat.to(dt), wflow), timed)
+        lambda dt: (xfeat.to(dt), wflow), timed, dtypes)
     # the warped flow is smooth, as SPyNet's flows are: the plain form's
     # normalized grid moves samples by ~1e-5 px, which the steps of a
-    # pixel-noise image would magnify past the tolerance
+    # pixel-noise image would magnify past the tolerance. That shift grows
+    # with the map's width (float32 spacing of the coordinates), and where
+    # a sample crosses the border the zero fade's slope is the flow value
+    # itself, so the bound scales with the width past the base map's
     fimg = torch.nn.functional.interpolate(
         randn(b, 2, h // 6, w // 6, std=3.0), size=(h, w), mode="bilinear",
         align_corners=True).permute(0, 2, 3, 1).contiguous()
     torch.testing.assert_close(deform.flow_warp(fimg, flow2),
                                deform.flow_warp_plain(fimg, flow2),
-                               rtol=1e-5, atol=1e-4)
+                               rtol=1e-5, atol=1e-4 * max(1.0, w / W))
+    return res
 
-    # K3 with the real deduplicated key table and padding frames
+
+def k3_inputs(dev, b, h, w, t=17):
+    """K3's inputs for b windows of T=t frames on the token grid of an
+    h x w quarter-res map, with the real deduplicated key table and padding
+    frames. Returns (make_inputs(dtype), nwin, S)."""
+    import torch
+    from e2fgvi_tpu_torch.models import tfocal
+    randn = _randn_fn(dev)
     heads, hd, wh, ww = 4, 128, 5, 9
-    fh, fw = 20, 36
-    idx, bias_rows, s = tfocal._window_tables(fh, fw, wh, ww, 2, 4, 4, 4,
-                                              torch.device(dev))
+    fh, fw = tfocal.token_grid((h, w))
+    idx, bias_rows, s = tfocal._window_tables(
+        fh, fw, wh, ww, 2, 4, -(-fh // wh), -(-fw // ww), torch.device(dev))
     nwin = (fh // wh) * (fw // ww)
     nq = t * wh * ww
     fv = torch.ones((b, t), dtype=torch.bool, device=dev)
-    fv[0, 6:11] = False
-    fv[1, 9:11] = False
-    fv[2, 15:] = False
+    for i, pad in enumerate((slice(6, 11), slice(9, 11), slice(15, None))):
+        if i < b:
+            fv[i, pad] = False
     bias_g = bias_rows[None, :, None, :].expand(b, nwin, t, s)
     bias_g = torch.where(fv[:, None, :, None], bias_g,
                          torch.full_like(bias_g, -1e9))
@@ -216,16 +263,22 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
                randn(b * heads, t, nwin, s, hd),
                randn(b * heads, t, nwin, s, hd))
 
-    def k3_inputs(dt):
+    def make_inputs(dt):
         return (*(v.to(dt) for v in k3_base), bias_o, bias_g, b, heads)
+    return make_inputs, nwin, s
 
-    res["focal_attention"] = compare(
-        "focal_attention", fa.focal_attention, fa.focal_attention_plain,
-        k3_inputs, timed)
-    return res
+
+def check_k3(dev, b, h, w, t=17, timed=True):
+    """K3 against its plain version (see k3_inputs). Returns compare()'s
+    result and the geometry (nwin, S)."""
+    from e2fgvi_tpu_torch.kernels import focal_attention as fa
+    make_inputs, nwin, s = k3_inputs(dev, b, h, w, t)
+    return compare("focal_attention", fa.focal_attention,
+                   fa.focal_attention_plain, make_inputs, timed), (nwin, s)
 
 
 SERVING_KERNELS = ("deform", "focal_attention")
+SERVING_NAMES = ("deform_im2col", "flow_warp", "focal_attention")
 EXPERIMENT_KERNELS = ("band_sampler", "gather", "band_attention")
 
 
@@ -245,12 +298,26 @@ def reset_launch_counts(modules=SERVING_KERNELS):
             d[k] = 0
 
 
+def load_golden(variant):
+    return np.load(os.path.join(ROOT, "tests", "goldens",
+                                f"generator_{variant}.npz"))
+
+
+def golden_model(variant, dev):
+    """The float32 generator of `variant` with the golden's weights."""
+    from e2fgvi_tpu_torch.models import e2fgvi
+    model = e2fgvi.Generator(variant)
+    model.load_state_dict(golden_state_dict(load_golden(variant)),
+                          strict=True)
+    return model.to(dev).eval()
+
+
 def check_golden(model, dev):
-    """The float32 generator, kernels on, against the reference golden."""
+    """The float32 generator, kernels on, against the reference golden of
+    its variant."""
     import torch
     from e2fgvi_tpu_torch.models import e2fgvi
-    data = np.load(os.path.join(ROOT, "tests", "goldens",
-                                "generator_base.npz"))
+    data = load_golden(model.variant)
     t, lt = int(data["t"]), int(data["lt"])
     h, w = int(data["h"]), int(data["w"])
     frames = np.random.default_rng(11).uniform(
@@ -298,15 +365,15 @@ def synth_video(seed, t=70, h=240, w=432):
 
 
 def serve(model, dev, n_videos=3, t=70, timer_cls=None, max_batch=B,
-          dtype="bfloat16"):
-    """The serving path: SlidingWindowInpainter on synthetic videos, in
-    the model's dtype."""
+          dtype="bfloat16", h=240, w=432):
+    """The serving path: SlidingWindowInpainter on synthetic h x w videos,
+    in the model's dtype."""
     import torch
     from e2fgvi_tpu_torch.data.pipeline import SlidingWindowInpainter
     inpainter = SlidingWindowInpainter(
         model, max_batch=max_batch, dtype=getattr(torch, dtype),
         out_dtype=np.uint8, device=dev)
-    videos = [synth_video(seed, t) for seed in range(1, n_videos + 1)]
+    videos = [synth_video(seed, t, h, w) for seed in range(1, n_videos + 1)]
     reset_launch_counts()
     runs = []
     for frames, masks in videos:
@@ -374,6 +441,118 @@ def window_batch_vs_plain(model32, model16, dev, frames, masks, windows):
     for i, nv in enumerate(valid[sel]):
         err = max(err, float((got[i, :nv] - want[i, :nv]).abs().max()))
     return err
+
+
+def check_hq_kernels(dev):
+    """K1, K2 and K3 against their plain versions at the HQ model's shapes.
+
+    864x480: K1/K2 at serving batch B on 120x216 maps; K3 on the 40x72
+    token grid (64 windows, S=149) at B=2, where the plain version's
+    float32 logits still fit (~5 GB), and then the kernel alone at B.
+    1296x720 (1280x720 mirror-padded): K3 on the 60x108 grid (144 windows,
+    S=153) at B=1; K1/K2 in bfloat16 at B on 180x324 maps, where K1 writes
+    its largest im2col matrix (1.88e9 elements)."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import focal_attention as fa
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    res = {}
+    for label, (h, w), b3, geom in (("864x480", HQ_MAP, 2, (64, 149)),
+                                    ("1296x720", HQ720_MAP, 1, (144, 153))):
+        dtypes = (("float32", "bfloat16") if label == "864x480"
+                  else ("bfloat16",))
+        res[label] = check_k1k2(dev, B, h, w, dtypes=dtypes)
+        torch.cuda.empty_cache()
+        k3, (nwin, s) = check_k3(dev, b3, h, w)
+        if (nwin, s) != geom:
+            raise AssertionError(f"{label}: {nwin} windows, S={s}; "
+                                 f"expected {geom}")
+        res[label]["focal_attention"] = {"batch": b3, "nwin": nwin, "S": s,
+                                         **k3}
+        torch.cuda.empty_cache()
+    make_inputs, _, _ = k3_inputs(dev, B, *HQ_MAP)
+    for dt in ("bfloat16", "float32"):
+        inputs = make_inputs(getattr(torch, dt))
+        res["864x480"]["focal_attention"][f"ms_b{B}_{dt}"] = cuda_ms(
+            lambda: fa.focal_attention(*inputs))
+        del inputs
+    return res
+
+
+def write_davis(root, n_videos, t, h, w, seed=0):
+    """A DAVIS-layout set under root/davis (JPEGImages/<v>.zip, per-frame
+    test_masks/<v>/NNNNN.png, test.json): smooth noise frames and a moving
+    rectangle mask."""
+    import zipfile
+    from PIL import Image
+    dav = os.path.join(root, "davis")
+    os.makedirs(os.path.join(dav, "JPEGImages"))
+    rng = np.random.default_rng(seed)
+    manifest = {}
+    for v in range(n_videos):
+        name = f"vid{v}"
+        mask_dir = os.path.join(dav, "test_masks", name)
+        os.makedirs(mask_dir)
+        low = rng.integers(0, 255, (t, h // 8, w // 8, 3), dtype=np.uint8)
+        with zipfile.ZipFile(os.path.join(dav, "JPEGImages", f"{name}.zip"),
+                             "w") as zf:
+            for i in range(t):
+                jpg = os.path.join(root, f"{name}_{i}.jpg")
+                Image.fromarray(low[i]).resize((w, h), Image.BILINEAR).save(
+                    jpg, quality=90)
+                zf.write(jpg, arcname=f"{i:05d}.jpg")
+                mask = np.zeros((h, w), np.uint8)
+                mask[h // 4 + 2 * i: h // 2 + 2 * i,
+                     w // 4 + 3 * i: w // 2 + 3 * i] = 255
+                Image.fromarray(mask).save(
+                    os.path.join(mask_dir, f"{i:05d}.png"))
+        manifest[name] = t
+    with open(os.path.join(dav, "test.json"), "w") as f:
+        json.dump(manifest, f)
+    return root
+
+
+def run_evaluate(dev, tmp):
+    """The evaluate entry point in float32 on a synthetic DAVIS-layout set
+    (3 videos of 24 frames at 432x240), the golden's base weights as a
+    .pth and a seeded I3D .pt in the pytorch-i3d layout; then the I3D
+    features of one video on the card against the CPU."""
+    import torch
+    from e2fgvi_tpu_torch.cli import evaluate
+    from e2fgvi_tpu_torch.models import i3d
+    write_davis(tmp, 3, 24, 240, 432)
+    ckpt = os.path.join(tmp, "E2FGVI-CVPR22.pth")
+    torch.save(golden_state_dict(load_golden("base")), ckpt)
+    i3d_ckpt = os.path.join(tmp, "i3d_rgb_imagenet.pt")
+    torch.save(i3d.random_reference_state_dict(
+        torch.Generator().manual_seed(0)), i3d_ckpt)
+    out = os.path.join(tmp, "results")
+    reset_launch_counts()
+    psnr, ssim, vfid = evaluate.main([
+        "--dataset", "davis", "--data_root", tmp, "--ckpt", ckpt,
+        "--i3d_ckpt", i3d_ckpt, "--device", dev, "--dtype", "float32",
+        "--out", out])
+    counts = launch_counts()
+    if not all(v > 0 for v in counts.values()):
+        raise AssertionError(f"evaluate missed a kernel: {counts}")
+    if not (5.0 < psnr < 60.0 and 0.0 < ssim <= 1.0 and np.isfinite(vfid)):
+        raise AssertionError(f"evaluate: PSNR {psnr} SSIM {ssim} VFID {vfid}")
+    with open(os.path.join(out, "e2fgvi_davis",
+                           "e2fgvi_davis_metrics.txt")) as f:
+        lines = f.read().splitlines()
+    if len(lines) != 4 or not lines[-1].endswith(
+            f"{psnr:.2f}/{ssim:.4f}/{vfid:.3f}"):
+        raise AssertionError(f"metrics file: {lines}")
+    video = torch.rand((1, 24, 240, 432, 3),
+                       generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        want = i3d.i3d_features(i3d.load_i3d(i3d_ckpt, "cpu"), video)
+        got = i3d.i3d_features(i3d.load_i3d(i3d_ckpt, dev),
+                               video.to(dev)).cpu()
+    i3d_err = float((got - want).abs().max() / want.abs().max())
+    if not i3d_err <= 1e-4:
+        raise AssertionError(f"I3D on the card vs the CPU: rel {i3d_err}")
+    return {"psnr": psnr, "ssim": ssim, "vfid": vfid,
+            "i3d_rel_err": i3d_err}, counts
 
 
 def check_experiment_kernels(dev):
@@ -476,12 +655,12 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, ROOT)
     from e2fgvi_tpu_torch.kernels import build
-    from e2fgvi_tpu_torch.models import e2fgvi
     from e2fgvi_tpu_torch.utils import env
     from e2fgvi_tpu_torch.utils.timing import StageTimer
 
     env.setup()
     dev = "cuda"
+    t_start = time.perf_counter()
     # 1. device
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
@@ -494,29 +673,27 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} capability {cap} "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
+    t0 = phase_end("device", t_start)
 
     # 2. build
-    t0 = time.perf_counter()
     _, nvcc_log = build.build()
     build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
     for line in nvcc_log.splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             log("  " + line.strip())
+    t0 = phase_end("build", t0)
 
     # 3. kernels against their plain versions
     kres = check_kernels(dev)
     for name, r in kres.items():
         log(f"kernel {name}: " + json.dumps(r))
     torch.cuda.empty_cache()
+    t0 = phase_end("kernels", t0)
 
     # 4. golden, float32 with the kernels
-    data = np.load(os.path.join(ROOT, "tests", "goldens",
-                                "generator_base.npz"))
-    model32 = e2fgvi.Generator()
-    model32.load_state_dict(golden_state_dict(data), strict=True)
-    model32 = model32.to(dev).eval()
+    model32 = golden_model("base", dev)
     log("golden: " + json.dumps(check_golden(model32, dev)))
+    t0 = phase_end("golden", t0)
 
     # 5. serving, bfloat16, 3 requests
     model16 = copy.deepcopy(model32).to(torch.bfloat16)
@@ -537,31 +714,93 @@ def main():
                                 dtype="float32")
     log_runs("serving f32 max_batch 4", runs32)
     log(f"serving f32 launches {json.dumps(counts32)}")
+    t0 = phase_end("serving", t0)
 
     # 6. the experiments' kernels and entry points
     del model16, model32
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     eres, exact = check_experiment_kernels(dev)
     for name, r in eres.items():
         log(f"kernel {name}: " + json.dumps(r))
     log("bit-equal to E5 base: " + json.dumps(exact))
     torch.cuda.empty_cache()
     _, ecounts = drive_experiments()
-    log(f"experiments launches {json.dumps(ecounts)}; phase 6 "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"experiments launches {json.dumps(ecounts)}")
     kres.update(eres)
     counts.update(ecounts)
+    t0 = phase_end("experiments", t0)
 
+    # 7. hq: K1-K3 at HQ shapes, the HQ golden, HQ serving at 864x480
+    hres = check_hq_kernels(dev)
+    for label, r in hres.items():
+        for name, v in r.items():
+            log(f"hq kernel {label} {name}: " + json.dumps(v))
+    log(f"hq kernels: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    hq32 = golden_model("hq", dev)
+    log("hq golden: " + json.dumps(check_golden(hq32, dev)))
+    hq16 = copy.deepcopy(hq32).to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    hruns, hcounts, (frames, masks) = serve(
+        hq16, dev, n_videos=2, timer_cls=StageTimer, h=480, w=864)
+    log_runs("hq serving 864x480", hruns)
+    log(f"hq serving launches {json.dumps(hcounts)}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t1 = time.perf_counter()
+    err = window_batch_vs_plain(hq32, hq16, dev, frames,
+                                masks.astype(np.float32), (0, 13))
+    log(f"hq window batch bf16 kernels vs f32 plain: max |delta| {err:.4f} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    if not err <= 0.05:
+        raise AssertionError(f"bf16 HQ window batch off by {err} > 0.05")
+    # 1280x720 is no multiple of the pad: mirror-padded to 1296x720,
+    # cropped back
+    del frames, masks
+    runs720, _, _ = serve(hq16, dev, n_videos=1, t=20, timer_cls=StageTimer,
+                          h=720, w=1280)
+    log_runs("hq serving 1280x720", runs720)
+    del hq16
+    torch.cuda.empty_cache()
+    hruns32, hcounts32, _ = serve(hq32, dev, n_videos=1, t=20,
+                                  timer_cls=StageTimer, max_batch=4,
+                                  dtype="float32", h=480, w=864)
+    log_runs("hq serving 864x480 f32 max_batch 4", hruns32)
+    log(f"hq serving f32 launches {json.dumps(hcounts32)}")
+    del hq32
+    torch.cuda.empty_cache()
+    t0 = phase_end("hq", t0)
+
+    # 8. evaluate: the benchmark-evaluation entry point with VFID
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_res, vcounts = run_evaluate(dev, tmp)
+    log(f"evaluate: {json.dumps(eval_res)}, launches {json.dumps(vcounts)}")
+    t0 = phase_end("evaluate", t0)
+    jax_mods = sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith("jax."))
+    if jax_mods:
+        raise AssertionError(f"JAX was imported: {jax_mods[:5]}")
+
+    # launches: the serving runs of both models and evaluate, each read
+    # just after its own run
+    for c in (hcounts, vcounts):
+        for name, n in c.items():
+            counts[name] += n
     kernels = []
     for name, (src, replaces) in REPLACES.items():
         r = kres[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"],
-                        **{k: r[k] for k in ("ms_f32", "plain_ms_f32",
-                                             "bf16_rel_err") if k in r}})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": counts[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"],
+                 **{k: r[k] for k in ("ms_f32", "plain_ms_f32",
+                                      "bf16_rel_err") if k in r}}
+        if name in SERVING_NAMES:     # the HQ shapes' times (phase 7)
+            entry["hq"] = {label: {k: v for k, v in hres[label][name].items()
+                                   if k in ("ms", "plain_ms", "ms_f32",
+                                            "plain_ms_f32", "max_abs_err")}
+                           for label in hres}
+        kernels.append(entry)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

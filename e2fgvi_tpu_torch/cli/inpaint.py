@@ -1,12 +1,16 @@
 """Single-video inpainting CLI on the GPU (the reference test.py contract).
 
-Counterpart of e2fgvi_tpu/cli/inpaint.py for the base model: a frame
-directory or .mp4 in, a per-frame mask directory, the neighbor/reference
-window flags, an .mp4 out. A reference checkpoint (.pth) loads into the
-port as it is, with load_state_dict (no converter).
+Counterpart of e2fgvi_tpu/cli/inpaint.py: a frame directory or .mp4 in, a
+per-frame mask directory, the neighbor/reference window flags, an .mp4
+out. A reference checkpoint (.pth) loads into the port as it is, with
+load_state_dict (no converter). The base model runs at 432x240; the HQ
+model (--model e2fgvi_hq) at --width x --height with --set_size, else at
+the video's own size.
 
     python -m e2fgvi_tpu_torch.cli.inpaint -v examples/tennis \
         -m examples/tennis_mask -c E2FGVI-CVPR22.pth --dtype bfloat16
+    python -m e2fgvi_tpu_torch.cli.inpaint -v examples/hqtest \
+        -m examples/hqtest_mask -c E2FGVI-HQ-CVPR22.pth --model e2fgvi_hq
 """
 
 import argparse
@@ -29,13 +33,13 @@ def build_parser():
     p.add_argument("-m", "--mask", type=str, required=True,
                    help="directory of per-frame masks")
     p.add_argument("--model", type=str, default="e2fgvi",
-                   choices=["e2fgvi"])
+                   choices=["e2fgvi", "e2fgvi_hq"])
     p.add_argument("--step", type=int, default=10, help="ref-frame stride")
     p.add_argument("--num_ref", type=int, default=-1)
     p.add_argument("--neighbor_stride", type=int, default=5)
     p.add_argument("--savefps", type=int, default=24)
-    # the base model always runs at 432x240: --set_size/--width/--height
-    # are accepted and ignored, as in the JAX CLI for --model e2fgvi
+    # the base model always runs at 432x240 and ignores these, as the JAX
+    # CLI does; the HQ model takes (--width, --height) with --set_size
     p.add_argument("--set_size", action="store_true", default=False)
     p.add_argument("--width", type=int)
     p.add_argument("--height", type=int)
@@ -53,9 +57,23 @@ def build_parser():
     return p
 
 
+def frame_size(args):
+    """The (width, height) frames are read at, or None for the video's own
+    size (e2fgvi_tpu/cli/inpaint.py:104-114): base is always 432x240, HQ
+    takes (--width, --height) with --set_size."""
+    if args.model == "e2fgvi":
+        return (432, 240)
+    if args.set_size:
+        return (args.width, args.height)
+    return None
+
+
 def load_model(args, device):
+    """The generator of args.model on `device` in args.dtype: seeded random
+    weights with args.random_weights, else the reference .pth at
+    args.ckpt. Returns (model, torch dtype)."""
     from e2fgvi_tpu_torch.models import e2fgvi
-    model = e2fgvi.Generator()
+    model = e2fgvi.Generator("hq" if args.model == "e2fgvi_hq" else "base")
     if args.random_weights:
         model.init_weights(torch.Generator().manual_seed(0))
     else:
@@ -77,9 +95,11 @@ def main(argv=None):
     from e2fgvi_tpu.data.video import write_video
     from e2fgvi_tpu_torch.data.pipeline import SlidingWindowInpainter
 
-    size = (432, 240)
+    size = frame_size(args)
     print(f"Loading frames from {args.video} ...")
     frames_pil = readers.read_frames(args.video, size)
+    if size is None:
+        size = frames_pil[0].size
     video_length = len(frames_pil)
     orig = np.stack([np.asarray(f, np.uint8) for f in frames_pil])
     print(f"Loading masks from {args.mask} ...")

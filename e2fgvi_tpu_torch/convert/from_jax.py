@@ -1,10 +1,11 @@
 """JAX-package parameters -> the port's (reference-layout) state dict.
 
 The exact inverse of e2fgvi_tpu/convert/torch_loader.py:convert_generator
-(base variant): HWIO -> OIHW convs, (in, out) -> (out, in) Linears, the
+(both variants): HWIO -> OIHW convs, (in, out) -> (out, in) Linears, the
 kernel-major -> channel-major patch permutations of ss/sc and the F3N
 fc1/fc2 (torch_loader._patch_linear_in/_out), and the sc bias map HWC ->
-CHW. Every step is a permutation, so a round trip is bit-exact.
+CHW (base) or the sc bias conv HWIO -> OIHW (HQ). Every step is a
+permutation, so a round trip is bit-exact.
 
 Input: the JAX pytree with numpy leaves (np.asarray over the tree).
 Output: {key: float32 torch.Tensor} in the released checkpoint's keys.
@@ -86,8 +87,9 @@ def to_torch(sd):
             for k, v in sd.items()}
 
 
-def from_jax_params(params_np) -> dict:
-    """Base-generator pytree (numpy leaves) -> reference state dict."""
+def from_jax_params(params_np, variant="base") -> dict:
+    """Generator pytree (numpy leaves) -> reference state dict; variant
+    'base' or 'hq', as given to convert_generator."""
     p = params_np
     sd = {}
     for i, conv in enumerate(p["encoder"]):
@@ -99,7 +101,12 @@ def from_jax_params(params_np) -> dict:
     c = 128
     sd.update(_patch_linear_in(p["ss"]["embedding"], "ss.embedding", c))
     sd.update(_patch_linear_out(p["sc"]["embedding"], "sc.embedding", c))
-    sd["sc.bias"] = np.asarray(p["sc"]["bias"]).transpose(2, 0, 1)
+    if variant == "base":
+        sd["sc.bias"] = np.asarray(p["sc"]["bias"]).transpose(2, 0, 1)
+    elif variant == "hq":
+        sd.update(_conv(p["sc"]["bias_conv"], "sc.bias_conv"))
+    else:
+        raise ValueError(f"variant {variant!r} is neither 'base' nor 'hq'")
     for i, blk in enumerate(p["transformer"]):
         sd.update(block_state(blk, f"transformer.{i}."))
     sd.update(spynet_state(p["spynet"]))

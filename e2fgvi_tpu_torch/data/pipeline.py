@@ -28,7 +28,8 @@ from e2fgvi_tpu_torch.ops.resize import resize_scale_quarter
 from e2fgvi_tpu_torch.utils import env
 
 # H/W are mirror-padded to multiples of the base model's quarter-res
-# feature grid (reference test.py:156-165)
+# feature grid (reference test.py:156-165); any padded size then tiles into
+# whole (5, 9) attention windows, which the HQ model needs at other sizes
 PAD_MOD = (60, 108)
 # frames per encode call (and pairs per SPyNet call): bounds how many
 # full-resolution encoder activations are live at once
@@ -148,11 +149,13 @@ class SlidingWindowInpainter:
     (float32 or bfloat16; activations are cast to it, weights cast at each
     op unless the model already holds that dtype); out_dtype: np.float32
     (composites in [0, 255], the metric path) or np.uint8 (the
-    video-writing path)."""
+    video-writing path); pad_mod: frames are mirror-padded to multiples of
+    it and the outputs cropped back."""
 
     def __init__(self, model, neighbor_stride: int = 5, ref_length: int = 10,
                  num_ref: int = -1, max_batch: int = 8,
-                 dtype=torch.float32, out_dtype=np.float32, device=None):
+                 dtype=torch.float32, out_dtype=np.float32, device=None,
+                 pad_mod=PAD_MOD):
         self.device = env.device(device)
         param = next(model.parameters())
         if param.device.type != self.device.type:
@@ -165,6 +168,7 @@ class SlidingWindowInpainter:
         self.max_batch = max_batch
         self.dtype = dtype
         self.out_dtype = np.dtype(out_dtype)
+        self.pad_mod = tuple(pad_mod)
 
     @torch.inference_mode()
     def __call__(self, frames: np.ndarray, masks: np.ndarray,
@@ -191,8 +195,8 @@ class SlidingWindowInpainter:
             frames_u8 = frames
         else:
             frames_u8 = np.round((frames + 1.0) / 2.0 * 255.0).astype(np.uint8)
-        frames_u8, (h, w) = mirror_pad_hw(frames_u8, *PAD_MOD)
-        masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *PAD_MOD)
+        frames_u8, (h, w) = mirror_pad_hw(frames_u8, *self.pad_mod)
+        masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *self.pad_mod)
         fr = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(dev)
         mk = torch.from_numpy(np.ascontiguousarray(masks_u8)).to(dev)
 

@@ -1,4 +1,5 @@
-"""E2FGVI inpainting generator (base model, 432x240), channel-last.
+"""E2FGVI inpainting generators (base at 432x240, HQ at any size),
+channel-last.
 
 Counterpart of e2fgvi_tpu/models/e2fgvi.py (reference
 model/e2fgvi.py:133-263):
@@ -9,9 +10,14 @@ model/e2fgvi.py:133-263):
   -> soft split -> 8 temporal focal transformer blocks -> soft composition
   -> residual add -> decoder (2x bilinear up + conv, twice) -> tanh
 
-`Generator`'s parameter names are the released checkpoint's keys, so a
-reference E2FGVI-CVPR22.pth loads with load_state_dict(strict=True) once
-its recomputed buffers are dropped (see REFERENCE_BUFFERS).
+The two variants share every module but the soft composition: base adds
+a learned bias map fixed to the 60x108 quarter-resolution grid, HQ
+applies a 3x3 conv (`sc.bias_conv`) and so runs at any size whose
+quarter-resolution grid tiles into the attention windows (the pipeline's
+mirror pad sees to that). `Generator`'s parameter names are the released
+checkpoints' keys, so E2FGVI-CVPR22.pth / E2FGVI-HQ-CVPR22.pth load with
+load_state_dict(strict=True) once their recomputed buffers are dropped
+(see REFERENCE_BUFFERS).
 """
 
 import torch
@@ -47,6 +53,7 @@ _ENC_FUSE_GROUPS = {5: 2, 6: 4, 7: 8, 8: 1}
 # (upsample first?, cin, cout) at decoder indices 0, 2, 4, 6
 _DEC_PLAN = [(True, 128, 128), (False, 128, 64), (True, 64, 64),
              (False, 64, 3)]
+DECODE_MAX_ELEMENTS = 2**31 - 1
 
 # registered buffers of the reference model that the released checkpoint
 # carries; the port recomputes them, so they are dropped before loading
@@ -91,9 +98,15 @@ class Deconv(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 3, padding=1)
 
 
+VARIANTS = ("base", "hq")
+
+
 class Generator(nn.Module):
-    def __init__(self):
+    def __init__(self, variant: str = "base"):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+        self.variant = variant
         c = CHANNEL // 2
         self.encoder = Encoder()
         dec = []
@@ -105,7 +118,8 @@ class Generator(nn.Module):
         self.decoder = nn.Sequential(*dec)
         self.feat_prop_module = feat_prop.FeatPropModule(c)
         self.ss = tfocal.SoftSplit(c, HIDDEN)
-        self.sc = tfocal.SoftComp(c, HIDDEN, OUTPUT_SIZE)
+        self.sc = tfocal.SoftComp(
+            c, HIDDEN, OUTPUT_SIZE if variant == "base" else None)
         self.transformer = nn.ModuleList(
             tfocal.TemporalFocalTransformerBlock(HIDDEN, WINDOW_SIZE)
             for _ in range(DEPTHS))
@@ -131,14 +145,27 @@ class Generator(nn.Module):
         for lin in (self.ss.embedding, self.sc.embedding):
             normal_(lin.weight)
             lin.bias.zero_()
-        self.sc.bias.zero_()
+        if self.variant == "base":
+            self.sc.bias.zero_()
+        else:
+            normal_(self.sc.bias_conv.weight)
+            self.sc.bias_conv.bias.zero_()
         for block in self.transformer:
             block.init_weights(gen)
         self.update_spynet.init_weights(gen)
         return self
 
     def decode(self, x):
-        """(B*T, H/4, W/4, 128) -> (B*T, H, W, 3), before tanh."""
+        """(B*T, H/4, W/4, 128) -> (B*T, H, W, 3), before tanh. Frames go
+        through in chunks whose widest activation (64 channels at full
+        resolution) stays below 2^31 elements, the most PyTorch's CUDA
+        bilinear upsample takes: at 864x480 that is 80 frames, fewer than
+        the 154 of a 14-window batch."""
+        n, hq, wq, _ = x.shape
+        step = max(1, DECODE_MAX_ELEMENTS // (64 * 16 * hq * wq))
+        if n > step:
+            return torch.cat([self.decode(x[s: s + step])
+                              for s in range(0, n, step)])
         convs = [m for m in self.decoder if not isinstance(m, nn.LeakyReLU)]
         for i, ((up, _, _), m) in enumerate(zip(_DEC_PLAN, convs)):
             if up:
@@ -152,7 +179,9 @@ class Generator(nn.Module):
 
 def load_reference_state_dict(model: Generator, sd: dict):
     """Load a reference checkpoint state dict with strict=True after
-    dropping the buffers the port recomputes."""
+    dropping the buffers the port recomputes. A base checkpoint refuses to
+    load into an HQ model and the reverse (`sc.bias` against
+    `sc.bias_conv.*`)."""
     keep = {k: v for k, v in sd.items()
             if k not in REFERENCE_BUFFERS
             and not k.endswith(REFERENCE_BUFFER_SUFFIXES)}

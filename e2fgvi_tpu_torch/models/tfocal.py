@@ -14,7 +14,9 @@ deduplicated slots, -100 outside the pooled grid, -1e9 on padding frames).
 The softmax over both panels is K3 (kernels/focal_attention.py).
 
 Static geometry at the base model: a 20x36 token grid, (5, 9) windows,
-(2, 4) expansion, one pooled level of 4x4 window tokens.
+(2, 4) expansion, one pooled level of 4x4 window tokens. The HQ model
+takes the grid from the input size (864x480: 40x72 tokens, 64 windows);
+the window tables are built per grid and cached.
 """
 
 import math
@@ -23,6 +25,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from e2fgvi_tpu_torch.kernels.focal_attention import focal_attention
 from e2fgvi_tpu_torch.ops.convs import conv2d, gelu, layer_norm, linear
@@ -51,10 +54,17 @@ class SoftSplit(nn.Module):
 
 
 class SoftComp(nn.Module):
-    def __init__(self, channel=128, hidden=512, output_size=(60, 108)):
+    """With an output_size: the base model's learned (C, H, W) bias map.
+    Without one: the HQ model's 3x3 `bias_conv`, which takes any size
+    (reference tfocal_transformer_hq.py:58-79)."""
+
+    def __init__(self, channel=128, hidden=512, output_size=None):
         super().__init__()
         self.embedding = nn.Linear(hidden, channel * 49)
-        self.bias = nn.Parameter(torch.zeros(channel, *output_size))
+        if output_size is None:
+            self.bias_conv = nn.Conv2d(channel, channel, 3, padding=1)
+        else:
+            self.bias = nn.Parameter(torch.zeros(channel, *output_size))
 
 
 class WindowAttention(nn.Module):
@@ -115,13 +125,20 @@ def soft_split(ss, x, b):
 
 def soft_comp(sc, tokens, t, output_size):
     """(B, T, f_h, f_w, hidden) -> (B*T, H, W, C): Linear, overlap-add fold,
-    plus the learned bias map (reference tfocal_transformer.py:49-72)."""
+    then the learned bias map (base, reference tfocal_transformer.py:49-72)
+    or the 3x3 bias conv on the folded map (HQ, tfocal_transformer_hq.py:
+    58-79)."""
     b, tt, lh, lw, hidden = tokens.shape
     patches = linear(tokens.reshape(b * t, lh * lw, hidden),
                      sc.embedding.weight, sc.embedding.bias)
     out = fold(patches.transpose(1, 2), output_size, T2T_KERNEL,
                T2T_STRIDE, T2T_PADDING)
-    out = out + sc.bias.to(out.dtype)
+    if hasattr(sc, "bias_conv"):
+        conv = sc.bias_conv
+        out = F.conv2d(out, conv.weight.to(out.dtype),
+                       conv.bias.to(out.dtype), padding=1)
+    else:
+        out = out + sc.bias.to(out.dtype)
     return out.permute(0, 2, 3, 1)
 
 

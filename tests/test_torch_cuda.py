@@ -108,6 +108,86 @@ def test_focal_attention_matches_plain(gen, dtype, case):
         assert (got.float() - want).abs().max() / want.abs().max() < 5e-2
 
 
+# ---------------------------------------------------------------------------
+# K1-K3 at the HQ model's geometry: a 60x216 quarter-res map, whose 20x72
+# token grid has 32 windows and S = 141 deduplicated keys (the base model
+# only reaches 60x108, 16 windows, S = 125)
+# ---------------------------------------------------------------------------
+
+def _assert_close_to_plain(got, want, dtype, f32_tol, bf16_rel, f32_max=None):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=f32_tol[0],
+                                   atol=f32_tol[1])
+        if f32_max is not None:
+            assert (got - want).abs().max() <= f32_max
+    else:
+        assert (got.float() - want).abs().max() / want.abs().max() < bf16_rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hq_deform_kernels_match_plain(gen, dtype):
+    n, h, w = 2, 60, 216
+    x = _randn(gen, n, h, w, 256).to(dtype)
+    head = _randn(gen, n, h, w, 432).to(dtype)
+    f1, f2 = _randn(gen, n, h, w, 2, std=4), _randn(gen, n, h, w, 2, std=4)
+    f2[:, :, -8:, 0] += 60.0
+    wt = _randn(gen, 128, 256, 3, 3, std=0.02).to(dtype)
+    b = _randn(gen, 128, std=0.1).to(dtype)
+    got = deform.modulated_deform_conv2d_head(x, head, f1, f2, wt, b)
+    want = deform.deform_conv_head_plain(x.float(), head.float(), f1, f2,
+                                         wt.float(), b.float())
+    _assert_close_to_plain(got, want, dtype, (1e-5, 1e-4), 2e-2)
+    feat = _randn(gen, 2 * n, h, w, 128).to(dtype)
+    flow = torch.cat([f1, f2], 0)
+    _assert_close_to_plain(deform.flow_warp(feat, flow),
+                           deform.flow_warp_plain(feat.float(), flow),
+                           dtype, (1e-5, 1e-4), 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hq_focal_attention_matches_plain(gen, dtype):
+    from e2fgvi_tpu_torch.models import tfocal
+    b, t, heads, hd = 2, 4, 4, 128
+    fh, fw = tfocal.token_grid((60, 216))
+    _, bias_rows, s = tfocal._window_tables(fh, fw, 5, 9, 2, 4, 4, 8,
+                                            torch.device("cuda"))
+    nwin, nq = (fh // 5) * (fw // 9), t * 45
+    assert (fh, fw, nwin, s) == (20, 72, 32, 141)
+    fv = torch.ones((b, t), dtype=torch.bool, device="cuda")
+    fv[0, 2] = False                    # an end-padded window
+    bias_g = bias_rows[None, :, None, :].expand(b, nwin, t, s)
+    bias_g = torch.where(fv[:, None, :, None], bias_g, -1e9)
+    bias_g = bias_g.reshape(b * nwin, 1, t * s).contiguous()
+    bias_o = torch.where(fv, 0.0, -1e9)[:, :, None].expand(b, t, 45)
+    bias_o = bias_o.reshape(b, 1, nq).contiguous()
+    q = _randn(gen, b * heads * nwin, nq, hd, std=hd ** -0.5).to(dtype)
+    ko, vo = (_randn(gen, b * heads * nwin, nq, hd).to(dtype)
+              for _ in range(2))
+    kg, vg = (_randn(gen, b * heads, t, nwin, s, hd).to(dtype)
+              for _ in range(2))
+    got = fa.focal_attention(q, ko, vo, kg, vg, bias_o, bias_g, b, heads)
+    want = fa.focal_attention_plain(q.float(), ko.float(), vo.float(),
+                                    kg.float(), vg.float(), bias_o, bias_g,
+                                    b, heads)
+    _assert_close_to_plain(got, want, dtype, (2e-4, 2e-4), 5e-2, 1e-5)
+
+
+def test_i3d_on_cuda_matches_cpu(gen):
+    """VFID's I3D through cuDNN's 3-D convolutions (TF32 off) against the
+    CPU, on a reference-layout state dict."""
+    from e2fgvi_tpu_torch.models import i3d
+    model = i3d.I3D()
+    i3d.load_reference_state_dict(model, i3d.random_reference_state_dict(
+        torch.Generator().manual_seed(0)))
+    video = torch.rand((1, 19, 72, 128, 3),
+                       generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = i3d.i3d_features(model.eval(), video)
+        got = i3d.i3d_features(model.cuda(), video.cuda()).cpu()
+    assert got.shape == (1, i3d.FEATURES)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
 def test_kernels_refuse_grad(gen):
     x = _randn(gen, 1, 4, 5, 8).requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only"):
