@@ -5,12 +5,20 @@
 
 Phases, one line each (any failed check raises and exits nonzero):
   1. device   CUDA with compute capability 9.0; nvidia-smi name, power limit
-  2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc
+  2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc; the bf16
+              K3's SASS must hold HGMMA (wgmma) and UTMALDG (TMA loads)
   3. kernels  K1 deform_im2col, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
               the float32 K3 (3xTF32 on tensor cores) also within max
-              |delta| 1e-5 of its plain version, which one TF32 pass misses
+              |delta| 1e-5 of its plain version, which one TF32 pass
+              misses; K3 also at B=1 with only the first frame valid.
+              Beside each kernel's ms: its plain version's, the one
+              PyTorch call that computes the same function where there is
+              one (library_ms: F.grid_sample for K2,
+              scaled_dot_product_attention for K3), and its bound
+              (bound_ms: bytes at 3.35 TB/s against operations at the
+              H100 SXM's peak for their type)
   4. golden   the generator in float32 with the kernels against
               tests/goldens/generator_base.npz
   5. serving  SlidingWindowInpainter (bfloat16, max_batch 14) on 3
@@ -22,13 +30,17 @@ Phases, one line each (any failed check raises and exits nonzero):
   6. experiments  the seven kernels of the A/B experiments (E1-E6: banded
               sampler variants, row gather, 4-corner sampler,
               band-assembled attention) against their plain versions at
-              the experiments' default shapes, E1/E6 bit-equal to E5; then
+              the experiments' default shapes, E1/E6 bit-equal to E5, with
+              bounds and library calls (torch.gather for E3, F.grid_sample
+              for E4); then
               the four experiment entry points
               (e2fgvi_tpu_torch.experiments) with launch counts, and E2
               against K3 on one random block
   7. hq       K1, K2 and K3 against their plain versions at the HQ model's
               shapes: 864x480 (120x216 maps; K3 on 64 windows, S=149, at
-              B=2 and timed alone at B=14) and 1296x720 (K3 on 144
+              B=2, at B=14, there against the plain version one batch
+              element at a time, and at B=1 with only the first frame
+              valid) and 1296x720 (K3 on 144
               windows, S=153, at B=1; K1/K2 in bfloat16 at B=14); the HQ
               generator in float32 against tests/goldens/generator_hq.npz;
               HQ serving (bfloat16, max_batch 14) on 2 synthetic 70-frame
@@ -77,6 +89,10 @@ BF16_REL = {"deform_im2col": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2,
             "band_sample": 2e-2, "band_sample_cbatch": 2e-2,
             "band_sample_xpair": 2e-2, "band_sample_cpair": 2e-2,
             "row_gather": 1e-6, "band_attention": 5e-2}
+# the bound: an H100 SXM's published dense peaks (bf16 on the tensor cores,
+# float32 without them) and its memory rate
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 CSRC = "e2fgvi_tpu_torch/csrc/"
 REPLACES = {
     "deform_im2col": (CSRC + "deform.cu",
@@ -101,6 +117,26 @@ REPLACES = {
 
 def log(msg):
     print(msg, flush=True)
+
+
+def sass_counts(lib, kernel, opcodes):
+    """How many SASS instructions of each opcode the functions of the
+    library `lib` whose names hold `kernel` have (cuobjdump -sass)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = dict.fromkeys(opcodes, 0)
+    pats = {op: re.compile(rf"\b{op}\b") for op in opcodes}
+    inside = False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            for op, pat in pats.items():
+                counts[op] += bool(pat.search(line))
+    return counts
 
 
 def phase_end(name, t0):
@@ -130,19 +166,48 @@ def golden_state_dict(data):
             for k, s in zip(keys, shapes)}
 
 
+def roofline(ins, outs, flops=()):
+    """(bound_ms, bound_by): the least time an H100 SXM takes for the work,
+    the larger of its bytes (each input read once, each output written
+    once) at 3.35 TB/s and its operations, `flops` ((count, peak FLOP/s),
+    ...), whose units run side by side."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size() for t in (*ins, *outs)
+                 if torch.is_tensor(t))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max((n / p for n, p in flops), default=0.0) * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def peak(t):
+    return PEAK_FLOPS[str(t.dtype).replace("torch.", "")]
+
+
 def compare(name, kernel_fn, plain_fn, make_inputs, timed=True,
-            dtypes=("float32", "bfloat16")):
+            dtypes=("float32", "bfloat16"), bound_fn=None, library_fn=None,
+            plain_chunks=None):
     """kernel vs plain in float32 (tight) and bfloat16 (relative to the
     float32 plain result on the same rounded inputs), in the dtypes the
-    kernel takes. ms / plain_ms are bfloat16 times where the kernel takes
-    bfloat16, float32 otherwise."""
+    kernel takes. ms / plain_ms / library_ms / bound_ms are bfloat16 where
+    the kernel takes bfloat16, float32 otherwise (ms_f32, bound_ms_f32 and
+    so on beside them). bound_fn(inputs, out) gives (bound_ms, bound_by);
+    library_fn(*inputs) the one PyTorch call that computes the same
+    function, as a callable to time (built outside the timing);
+    plain_chunks(inputs) the plain version's inputs in pieces whose outputs
+    concatenate along dim 0, where its whole intermediates would not fit."""
     import torch
     from e2fgvi_tpu_torch.utils.timing import cuda_ms
+
+    def plain_out(args):
+        if plain_chunks is None:
+            return plain_fn(*args)
+        return torch.cat([plain_fn(*a) for a in plain_chunks(args)])
+
     res = {}
     if "float32" in dtypes:
         inputs = make_inputs(torch.float32)
         got = kernel_fn(*inputs)
-        want = plain_fn(*inputs)
+        want = plain_out(inputs)
         rtol, atol = F32_TOL[name]
         torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
         res["max_abs_err"] = float((got - want).abs().max())
@@ -150,10 +215,11 @@ def compare(name, kernel_fn, plain_fn, make_inputs, timed=True,
             raise AssertionError(f"{name} f32: max |delta| "
                                  f"{res['max_abs_err']} > "
                                  f"{F32_MAX_ABS[name]}")
+        del got, want
     if "bfloat16" in dtypes:
         inputs16 = make_inputs(torch.bfloat16)
         got16 = kernel_fn(*inputs16).float()
-        want16 = plain_fn(*[t.float() if torch.is_tensor(t)
+        want16 = plain_out([t.float() if torch.is_tensor(t)
                             and t.dtype == torch.bfloat16 else t
                             for t in inputs16])
         rel = float((got16 - want16).abs().max() / want16.abs().max())
@@ -162,13 +228,20 @@ def compare(name, kernel_fn, plain_fn, make_inputs, timed=True,
                                  f"{BF16_REL[name]}")
         res["bf16_rel_err"] = rel
         res.setdefault("max_abs_err", float((got16 - want16).abs().max()))
+        del got16, want16
     if timed:
-        main = inputs16 if "bfloat16" in dtypes else inputs
-        res["ms"] = cuda_ms(lambda: kernel_fn(*main))
-        res["plain_ms"] = cuda_ms(lambda: plain_fn(*main))
+        runs = [("", inputs16 if "bfloat16" in dtypes else inputs)]
         if len(dtypes) == 2:
-            res["ms_f32"] = cuda_ms(lambda: kernel_fn(*inputs))
-            res["plain_ms_f32"] = cuda_ms(lambda: plain_fn(*inputs))
+            runs.append(("_f32", inputs))
+        for sfx, args in runs:
+            res["ms" + sfx] = cuda_ms(lambda: kernel_fn(*args))
+            if plain_chunks is None:
+                res["plain_ms" + sfx] = cuda_ms(lambda: plain_fn(*args))
+            if bound_fn is not None:
+                res["bound_ms" + sfx], res["bound_by" + sfx] = bound_fn(
+                    args, kernel_fn(*args))
+            if library_fn is not None:
+                res["library_ms" + sfx] = cuda_ms(library_fn(*args))
     return res
 
 
@@ -182,9 +255,13 @@ def _randn_fn(dev, seed=0):
 
 
 def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
-    """K1, K2 and K3 against their plain versions at serving shapes."""
+    """K1, K2 and K3 against their plain versions at serving shapes; K3
+    also on one window batch whose padding frames leave only the first
+    frame valid."""
     res = check_k1k2(dev, b, h, w, timed)
     res["focal_attention"], _ = check_k3(dev, b, h, w, t, timed)
+    first, _ = check_k3(dev, 1, h, w, t, timed=False, pad="first")
+    res["focal_attention"]["first_frame_only"] = first
     return res
 
 
@@ -207,18 +284,44 @@ def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16")):
         x, head, wt, bias = (v.to(dt) for v in k1_base)
         return x, head, flow1, flow2, wt, bias
 
+    def k1_bound(args, out):
+        # the im2col GEMM on the tensor cores (float32: without them) beside
+        # the sampler's ~9 float32 operations per im2col element
+        x, wt = args[0], args[4]
+        cols = (out.numel() // out.shape[-1]) * wt[0].numel()
+        return roofline(args, [out], [(2 * cols * out.shape[-1], peak(x)),
+                                      (9 * cols, PEAK_FLOPS["float32"])])
+
     res = {}
+    # no single PyTorch call computes a modulated deformable convolution
     res["deform_im2col"] = compare(
         "deform_im2col", deform.modulated_deform_conv2d_head,
-        deform.deform_conv_head_plain, k1_inputs, timed, dtypes)
+        deform.deform_conv_head_plain, k1_inputs, timed, dtypes,
+        bound_fn=k1_bound)
 
     # K2 at its two serving shapes: the pair of 128-channel feature warps
     # (2B maps) and the 2-channel flow composition (B maps, float32 only)
     wflow = torch.cat([flow1, flow2], 0)
     xfeat = randn(2 * b, h, w, 128)
+
+    def k2_library(x, flow):
+        # F.grid_sample on the channels-last map, the flow turned into its
+        # normalized grid beforehand
+        gy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+        gx = torch.arange(w, device=dev, dtype=torch.float32)
+        grid = torch.stack([2 * (gx + flow[..., 0]) / (w - 1) - 1,
+                            2 * (gy + flow[..., 1]) / (h - 1) - 1], -1)
+        xn = x.permute(0, 3, 1, 2)
+        return lambda: torch.nn.functional.grid_sample(
+            xn, grid.to(x.dtype), mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
     res["flow_warp"] = compare(
         "flow_warp", deform.flow_warp, deform.flow_warp_plain,
-        lambda dt: (xfeat.to(dt), wflow), timed, dtypes)
+        lambda dt: (xfeat.to(dt), wflow), timed, dtypes,
+        bound_fn=lambda a, out: roofline(
+            a, [out], [(8 * out.numel(), PEAK_FLOPS["float32"])]),
+        library_fn=k2_library)
     # the warped flow is smooth, as SPyNet's flows are: the plain form's
     # normalized grid moves samples by ~1e-5 px, which the steps of a
     # pixel-noise image would magnify past the tolerance. That shift grows
@@ -234,47 +337,95 @@ def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16")):
     return res
 
 
-def k3_inputs(dev, b, h, w, t=17):
+def k3_inputs(dev, b, h, w, t=17, pad="serving"):
     """K3's inputs for b windows of T=t frames on the token grid of an
     h x w quarter-res map, with the real deduplicated key table and padding
-    frames. Returns (make_inputs(dtype), nwin, S)."""
+    frames: pad "serving" pads frames 6-10, 9-10 and 15-16 of the first
+    three windows, "first" every frame but the first. Each window's key
+    panel is its own keys, then its gathered keys frame by frame (the order
+    models/tfocal.py builds). Returns (make_inputs(dtype), nwin, S)."""
     import torch
     from e2fgvi_tpu_torch.models import tfocal
     randn = _randn_fn(dev)
     heads, hd, wh, ww = 4, 128, 5, 9
     fh, fw = tfocal.token_grid((h, w))
-    idx, bias_rows, s = tfocal._window_tables(
-        fh, fw, wh, ww, 2, 4, -(-fh // wh), -(-fw // ww), torch.device(dev))
+    _, bias_rows, s = tfocal._window_tables(
+        fh, fw, wh, ww, 2, 4, -(-fh // wh), -(-fw // ww), t,
+        torch.device(dev))
     nwin = (fh // wh) * (fw // ww)
     nq = t * wh * ww
     fv = torch.ones((b, t), dtype=torch.bool, device=dev)
-    for i, pad in enumerate((slice(6, 11), slice(9, 11), slice(15, None))):
-        if i < b:
-            fv[i, pad] = False
+    if pad == "first":
+        fv[:, 1:] = False
+    else:
+        for i, frames in enumerate((slice(6, 11), slice(9, 11),
+                                    slice(15, None))):
+            if i < b:
+                fv[i, frames] = False
     bias_g = bias_rows[None, :, None, :].expand(b, nwin, t, s)
     bias_g = torch.where(fv[:, None, :, None], bias_g,
                          torch.full_like(bias_g, -1e9))
-    bias_g = bias_g.reshape(b * nwin, 1, t * s).contiguous()
-    bias_o = torch.where(fv, 0.0, -1e9)[:, :, None].expand(b, t, wh * ww)
-    bias_o = bias_o.reshape(b, 1, nq).contiguous()
-    k3_base = (randn(b * heads * nwin, nq, hd, std=hd ** -0.5),
-               randn(b * heads * nwin, nq, hd),
-               randn(b * heads * nwin, nq, hd),
-               randn(b * heads, t, nwin, s, hd),
-               randn(b * heads, t, nwin, s, hd))
+    bias_o = torch.where(fv, 0.0, -1e9)[:, None, :, None].expand(
+        b, nwin, t, wh * ww)
+    bias = torch.cat([bias_o.reshape(b, nwin, nq),
+                      bias_g.reshape(b, nwin, t * s)], -1)
+    bias = bias.reshape(b * nwin, nq + t * s).contiguous()
+    # the draws of the two-panel layout (q, own k, own v, gathered k,
+    # gathered v) joined into one panel: the same inputs as before it
+    q = randn(b * heads * nwin, nq, hd, std=hd ** -0.5)
+    kv = []
+    for _ in range(2):
+        kv.append(randn(b * heads * nwin, nq, hd))
+    for i in range(2):
+        g = randn(b * heads, t, nwin, s, hd).reshape(b, heads, t, nwin, s, hd)
+        g = g.permute(0, 1, 3, 2, 4, 5).reshape(b, heads, nwin, t * s, hd)
+        own = kv[i].reshape(b, heads, nwin, nq, hd)
+        kv[i] = torch.cat([own, g], 3).reshape(b * heads * nwin, -1, hd)
+        del g, own
 
     def make_inputs(dt):
-        return (*(v.to(dt) for v in k3_base), bias_o, bias_g, b, heads)
+        return (q.to(dt), kv[0].to(dt), kv[1].to(dt), bias, b, heads)
     return make_inputs, nwin, s
 
 
-def check_k3(dev, b, h, w, t=17, timed=True):
-    """K3 against its plain version (see k3_inputs). Returns compare()'s
-    result and the geometry (nwin, S)."""
+def k3_bound(args, out):
+    q, k, _, _, _, _ = args
+    return roofline(args[:4], [out], [(4 * q.numel() * k.shape[1], peak(q))])
+
+
+def k3_library(q, k, v, bias, b, heads):
+    """scaled_dot_product_attention over each (b, head, window)'s panel with
+    the bias as its additive mask (in q's dtype, as SDPA takes it)."""
+    import torch
+    import torch.nn.functional as F
+    p, nk = q.shape[0], k.shape[1]
+    nwin = bias.shape[0] // b
+    mask = bias.reshape(b, 1, nwin, 1, nk).expand(b, heads, nwin, 1, nk)
+    mask = mask.reshape(p, 1, 1, nk).to(q.dtype)
+    q4, k4, v4 = (z.view(p, 1, z.shape[1], z.shape[2]) for z in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=mask, scale=1.0)
+
+
+def k3_chunks(args):
+    """The plain version's inputs one batch element at a time."""
+    q, k, v, bias, b, heads = args
+    n, nw = q.shape[0] // b, bias.shape[0] // b
+    return [(q[i * n:(i + 1) * n], k[i * n:(i + 1) * n],
+             v[i * n:(i + 1) * n], bias[i * nw:(i + 1) * nw], 1, heads)
+            for i in range(b)]
+
+
+def check_k3(dev, b, h, w, t=17, timed=True, pad="serving", chunked=False):
+    """K3 against its plain version (see k3_inputs), with its bound and
+    SDPA's time; chunked runs the plain version one batch element at a
+    time. Returns compare()'s result and the geometry (nwin, S)."""
     from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    make_inputs, nwin, s = k3_inputs(dev, b, h, w, t)
+    make_inputs, nwin, s = k3_inputs(dev, b, h, w, t, pad)
     return compare("focal_attention", fa.focal_attention,
-                   fa.focal_attention_plain, make_inputs, timed), (nwin, s)
+                   fa.focal_attention_plain, make_inputs, timed,
+                   bound_fn=k3_bound, library_fn=k3_library,
+                   plain_chunks=k3_chunks if chunked else None), (nwin, s)
 
 
 SERVING_KERNELS = ("deform", "focal_attention")
@@ -447,14 +598,12 @@ def check_hq_kernels(dev):
     """K1, K2 and K3 against their plain versions at the HQ model's shapes.
 
     864x480: K1/K2 at serving batch B on 120x216 maps; K3 on the 40x72
-    token grid (64 windows, S=149) at B=2, where the plain version's
-    float32 logits still fit (~5 GB), and then the kernel alone at B.
-    1296x720 (1280x720 mirror-padded): K3 on the 60x108 grid (144 windows,
-    S=153) at B=1; K1/K2 in bfloat16 at B on 180x324 maps, where K1 writes
-    its largest im2col matrix (1.88e9 elements)."""
+    token grid (64 windows, S=149) at B=2, at B against the plain
+    version run one batch element at a time (its float32 logits at B are
+    ~36 GB), and at B=1 with only the first frame valid. 1296x720 (1280x720 mirror-padded): K3 on the 60x108 grid (144
+    windows, S=153) at B=1; K1/K2 in bfloat16 at B on 180x324 maps, where
+    K1 writes its largest im2col matrix (1.88e9 elements)."""
     import torch
-    from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    from e2fgvi_tpu_torch.utils.timing import cuda_ms
     res = {}
     for label, (h, w), b3, geom in (("864x480", HQ_MAP, 2, (64, 149)),
                                     ("1296x720", HQ720_MAP, 1, (144, 153))):
@@ -469,12 +618,11 @@ def check_hq_kernels(dev):
         res[label]["focal_attention"] = {"batch": b3, "nwin": nwin, "S": s,
                                          **k3}
         torch.cuda.empty_cache()
-    make_inputs, _, _ = k3_inputs(dev, B, *HQ_MAP)
-    for dt in ("bfloat16", "float32"):
-        inputs = make_inputs(getattr(torch, dt))
-        res["864x480"]["focal_attention"][f"ms_b{B}_{dt}"] = cuda_ms(
-            lambda: fa.focal_attention(*inputs))
-        del inputs
+    k3, _ = check_k3(dev, B, *HQ_MAP, chunked=True)
+    res["864x480"]["focal_attention"][f"b{B}"] = k3
+    first, _ = check_k3(dev, 1, *HQ_MAP, timed=False, pad="first")
+    res["864x480"]["focal_attention"]["first_frame_only"] = first
+    torch.cuda.empty_cache()
     return res
 
 
@@ -567,19 +715,27 @@ def check_experiment_kernels(dev):
     from e2fgvi_tpu_torch.kernels import band_sampler as bs
     from e2fgvi_tpu_torch.kernels import gather
 
+    def sampler_bound(args, out):
+        # the bilinear sum (8) and the mask (1) per output element
+        return roofline(args[:4], [out],
+                        [(9 * out.numel(), PEAK_FLOPS["float32"])])
+
+    # no single PyTorch call computes the banded sampler (K1's inner loop)
     res, exact = {}, {}
     src, *pos, dy_lo = ei.make_inputs(dev)          # E5/E6: band 24
     res["band_sample"] = compare(
         "band_sample", bs.band_sample, bs.band_sample_plain,
-        lambda dt: (src.to(dt), *pos, dy_lo))
+        lambda dt: (src.to(dt), *pos, dy_lo), bound_fn=sampler_bound)
     res["band_sample_cbatch"] = compare(
         "band_sample_cbatch", bs.band_sample_cbatch,
-        bs.band_sample_cbatch_plain, lambda dt: (src.to(dt), *pos, dy_lo))
+        bs.band_sample_cbatch_plain, lambda dt: (src.to(dt), *pos, dy_lo),
+        bound_fn=sampler_bound)
     psrc = bs.pack_xpairs(src)
     res["band_sample_xpair"] = compare(
         "band_sample_xpair", bs.band_sample_xpair,
         lambda p, *a: bs.band_sample_plain(bs.unpack_xpairs(p).float(), *a),
-        lambda dt: (psrc, *pos, dy_lo), dtypes=("bfloat16",))
+        lambda dt: (psrc, *pos, dy_lo), dtypes=("bfloat16",),
+        bound_fn=sampler_bound)
     base = bs.band_sample(src, *pos, dy_lo)
     exact["E6 xpair"] = torch.equal(bs.band_sample_xpair(psrc, *pos, dy_lo),
                                     base)
@@ -594,7 +750,8 @@ def check_experiment_kernels(dev):
     res["band_sample_cpair"] = compare(
         "band_sample_cpair", bs.band_sample_cpair,
         lambda p, *a: bs.band_sample_plain(bs.unpack_cpairs(p).float(), *a),
-        lambda dt: (pc, *pos, dy_lo), dtypes=("bfloat16",))
+        lambda dt: (pc, *pos, dy_lo), dtypes=("bfloat16",),
+        bound_fn=sampler_bound)
     exact["E1 cpair"] = torch.equal(bs.band_sample_cpair(pc, *pos, dy_lo),
                                     bs.band_sample(src, *pos, dy_lo))
     del src, pos, pc
@@ -603,19 +760,57 @@ def check_experiment_kernels(dev):
         raise AssertionError(f"packed samplers not bit-equal to E5: {exact}")
 
     tab, idx, gpy, gpx = eg.make_inputs(dev)        # E3/E4: 60x108, 9 taps
+
+    def gather_library(tab, idx):
+        # torch.gather, the index widened to int64 beforehand
+        flat = idx.reshape(-1, idx.shape[-1]).long()
+        return lambda: torch.gather(tab, 0, flat)
+
     res["row_gather"] = compare("row_gather", gather.row_gather,
                                 gather.row_gather_plain,
-                                lambda dt: (tab.to(dt), idx))
+                                lambda dt: (tab.to(dt), idx),
+                                bound_fn=lambda a, out: roofline(a, [out]),
+                                library_fn=gather_library)
+
+    def bilinear4_library(tab, py, px, h, w):
+        # F.grid_sample with the G lane groups as G images (lane j is group
+        # j % G) and the positions as a normalized grid (align_corners)
+        g = py.shape[-1]
+        img = tab.reshape(h, w, -1, g).permute(3, 2, 0, 1)
+        grid = torch.stack([2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1], -1)
+        grid = grid.permute(2, 0, 1, 3).contiguous()
+        return lambda: torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
     res["bilinear4_sample"] = compare(
         "bilinear4_sample", gather.bilinear4_sample,
         gather.bilinear4_sample_plain, lambda dt: (tab, gpy, gpx, H, W),
-        dtypes=("float32",))
+        dtypes=("float32",),
+        bound_fn=lambda a, out: roofline(
+            a[:3], [out], [(8 * out.numel(), PEAK_FLOPS["float32"])]),
+        library_fn=bilinear4_library)
 
     block, x, pooled = ea.make_block(dev)           # E2: B 14, T 17
+
+    def band_attention_bound(args, out):
+        # the qkv GEMMs (tokens and pooled tokens), attention over each
+        # window's T * 210 in-place keys, and the proj GEMM, at bf16 rates
+        attn, x, pooled, heads, (wh, ww), _ = args
+        b, t, h, w, c = x.shape
+        tokens, nwin = b * t * h * w, (h // wh) * (w // ww)
+        nk = t * ba.slot_offsets(wh, ww, *args[5])[0].shape[0]
+        flops = (2 * (tokens + pooled[..., 0].numel()) * c * 3 * c
+                 + 4 * b * nwin * t * wh * ww * nk * c
+                 + 2 * tokens * c * c)
+        weights = (attn.qkv.weight, attn.qkv.bias, attn.proj.weight,
+                   attn.proj.bias)
+        return roofline([x, pooled, *weights], [out], [(flops, peak(x))])
+
     res["band_attention"] = compare(
         "band_attention", ba.band_attention, ba.band_attention_plain,
         lambda dt: (block.attn, x, pooled, ea.HEADS, ea.WIN, ea.EXP),
-        dtypes=("bfloat16",))
+        dtypes=("bfloat16",), bound_fn=band_attention_bound)
     return res, exact
 
 
@@ -676,11 +871,17 @@ def main():
     t0 = phase_end("device", t_start)
 
     # 2. build
-    _, nvcc_log = build.build()
+    lib_path, nvcc_log = build.build()
     build.library()
     for line in nvcc_log.splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             log("  " + line.strip())
+    # the bf16 K3 must run on wgmma fed by TMA
+    ops = sass_counts(lib_path, "focal_attention_wgmma_kernel",
+                      ("HGMMA", "UTMALDG", "HMMA"))
+    log(f"bf16 K3 SASS opcodes: {json.dumps(ops)}")
+    if not (ops["HGMMA"] and ops["UTMALDG"]):
+        raise AssertionError(f"bf16 K3 is not on wgmma + TMA: {ops}")
     t0 = phase_end("build", t0)
 
     # 3. kernels against their plain versions
@@ -786,18 +987,23 @@ def main():
         for name, n in c.items():
             counts[name] += n
     kernels = []
+    extra = ("ms_f32", "plain_ms_f32", "bound_ms_f32", "library_ms_f32",
+             "bf16_rel_err")
+    hq_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_f32",
+               "plain_ms_f32", "bound_ms_f32", "library_ms_f32",
+               "max_abs_err", "bf16_rel_err", f"b{B}")
     for name, (src, replaces) in REPLACES.items():
         r = kres[name]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": counts[name],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"],
-                 **{k: r[k] for k in ("ms_f32", "plain_ms_f32",
-                                      "bf16_rel_err") if k in r}}
-        if name in SERVING_NAMES:     # the HQ shapes' times (phase 7)
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 "library_ms": r.get("library_ms"),
+                 **{k: r[k] for k in extra if k in r}}
+        if name in SERVING_NAMES:     # the HQ shapes' numbers (phase 7)
             entry["hq"] = {label: {k: v for k, v in hres[label][name].items()
-                                   if k in ("ms", "plain_ms", "ms_f32",
-                                            "plain_ms_f32", "max_abs_err")}
+                                   if k in hq_keys}
                            for label in hres}
         kernels.append(entry)
     log(f"total: {time.perf_counter() - t_start:.1f} s")

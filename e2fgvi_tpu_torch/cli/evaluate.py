@@ -8,9 +8,9 @@ and average PSNR/SSIM and the dataset's VFID, and writes
 <out>/<model>_<dataset>/<model>_<dataset>_metrics.txt in the reference
 format; --save_results dumps the composited frames as PNGs.
 
-The dataset reader (e2fgvi_tpu.data.datasets.TestDataset), PSNR/SSIM
-(e2fgvi_tpu.eval.metrics) and the PNG writer are the JAX package's host
-modules, imported as they are: none imports jax. VFID runs I3D on the
+The dataset reader (data/datasets.py TestDataset), PSNR/SSIM
+(eval/metrics.py) and the PNG writer (data/video.py) are the port's own
+copies of the JAX package's host modules. VFID runs I3D on the
 device at each video's exact length, as the reference does, and takes the
 Frechet distance with eval/vfid.py; the JAX CLI's T-bucketing, which
 exists because XLA compiles one program per shape, is not ported, so
@@ -72,11 +72,11 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     env.setup()
     device = env.device(args.device)
-    from e2fgvi_tpu.data.datasets import TestDataset
-    from e2fgvi_tpu.data.video import write_frames
-    from e2fgvi_tpu.eval import metrics
     from e2fgvi_tpu_torch.cli.inpaint import load_model
+    from e2fgvi_tpu_torch.data.datasets import TestDataset
     from e2fgvi_tpu_torch.data.pipeline import SlidingWindowInpainter
+    from e2fgvi_tpu_torch.data.video import write_frames
+    from e2fgvi_tpu_torch.eval import metrics
     from e2fgvi_tpu_torch.eval.vfid import calculate_vfid
     from e2fgvi_tpu_torch.models import i3d
 

@@ -89,11 +89,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     env.setup()
     device = env.device(args.device)
-    # Pillow readers and the video writer are host-only modules of the
-    # JAX package that import no jax
-    from e2fgvi_tpu.data import readers
-    from e2fgvi_tpu.data.video import write_video
+    from e2fgvi_tpu_torch.data import readers
     from e2fgvi_tpu_torch.data.pipeline import SlidingWindowInpainter
+    from e2fgvi_tpu_torch.data.video import write_video
 
     size = frame_size(args)
     print(f"Loading frames from {args.video} ...")

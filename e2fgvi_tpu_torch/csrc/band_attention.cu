@@ -22,7 +22,8 @@
 // exists. The 1/sqrt(hd) scale is folded into q as it loads, rounded to
 // bf16 as the port's q * hd**-0.5 is.
 //
-// The product loop is K3's (flash_mma.cuh): one block per (64-query tile,
+// The product loop (flash_mma.cuh) is the one K3's bf16 kernel ran on
+// before it moved to wgmma: one block per (64-query tile,
 // head, b*nWin + window), 4 warps, mma.sync m16n8k16 with an online
 // softmax in registers. What bounds it on the H100 at the serving shape
 // (B=14, T=17, 16 windows, 4 heads, 765 queries, 17*210 keys, hd 128): the

@@ -1,7 +1,7 @@
-// The bfloat16 flash-attention tile loop on tensor cores, shared by K3
-// (focal_attention.cu) and E2 (band_attention.cu). The kernels differ only
-// in where a tile's query, key and value rows come from; each passes
-// load_tile a function giving the source of tile row r.
+// The bfloat16 flash-attention tile loop on tensor cores of E2
+// (band_attention.cu). It names no source of its own: the kernel passes
+// load_tile a function giving the source of tile row r. (K3's bfloat16
+// kernel, focal_attention.cu, runs on wgmma and TMA instead.)
 //
 // FlashAttention-2 style: 4 warps, each owning 16 of the block's 64 query
 // rows. Products are mma.sync m16n8k16 (bf16 in, f32 accumulate) with

@@ -1,27 +1,28 @@
-// K3 focal_attention: softmax over two key panels for every
+// K3 focal_attention: softmax over one key panel for every
 // (batch, window, head) of the temporal focal transformer (models/tfocal.py).
 //
 // Replaces the TPU kernel e2fgvi_tpu/kernels/fused_attention.py::_kernel
-// (built by _build, entry fused_focal_attention). The interface is the
-// same: q/ko/vo are (B*heads*nWin, n, hd) per-head window partitions, the
-// gathered rolled + pooled keys kg/vg are (B*heads, T, nWin, S, hd) (the
-// gather through the deduped key table stays a torch indexing op outside
-// the kernel), the biases are per key in float32, and each head writes its
-// hd-wide stripe of the (B*nWin, nq, heads*hd) output, ready for the proj
-// GEMM.
+// (built by _build, entry fused_focal_attention). The TPU kernel read the
+// window's own keys and its gathered rolled + pooled keys as two panels;
+// here the caller assembles both into one contiguous panel per (b, head,
+// window): q is (B*heads*nWin, nq, hd), k and v are (B*heads*nWin, nk, hd)
+// with nk = no + T*S, the float32 bias is one row per (b, window) of ld >= nk
+// floats with -inf past nk, and each head writes its hd-wide stripe of the
+// (B*nWin, nq, heads*hd) output, ready for the proj GEMM.
 //
 // Where the TPU kernel held a whole window's logits in VMEM (~100 MB
 // scoped), a Hopper block has at most 227 KB of shared memory, so both
-// dtypes run a flash loop: a block walks 64-key tiles of the own panel and
-// then of the gathered panel, with a running max and sum per query row
-// (online softmax). The work at serving shapes (B=14, 16 windows, 4 heads,
-// nq=765, 765 + 17*125 keys, hd=128) is ~1.0 TFLOP of q.k and p.v per
-// call, so both dtypes run it on tensor cores with mma.sync:
+// dtypes run a flash loop: a block walks key tiles of the panel with a
+// running max and sum per query row (online softmax). The work at serving
+// shapes (B=14, 16 windows, 4 heads, nq=765, nk = 765 + 17*125, hd=128) is
+// ~1.0 TFLOP of q.k and p.v per call against ~1.7 GB of inputs: compute
+// bound on the tensor cores (~1.0 ms at 989 TFLOP/s bf16), in both dtypes.
 //
-// - bfloat16, the serving path: m16n8k16 (flash_mma.cuh, shared with E2).
-// - float32, the parity path: 3xTF32 on m16n8k8 (this file). One TF32 pass
-//   keeps 10 mantissa bits and lands ~1e-4 off; the port pins full float32
-//   precision. Each operand x splits into big = rna_tf32(x) and
+// - bfloat16, the serving path (namespace hopper): wgmma fed by TMA, with a
+//   producer warpgroup. See the note there.
+// - float32, the parity path (namespace tf32): 3xTF32 on m16n8k8. One TF32
+//   pass keeps 10 mantissa bits and lands ~1e-4 off; the port pins full
+//   float32 precision. Each operand x splits into big = rna_tf32(x) and
 //   small = rna_tf32(x - big), and each product is small*big + big*small +
 //   big*big in float32 (small*small, ~2^-22 relative, is dropped). The
 //   tensor cores truncate every float32 accumulation toward zero, so the
@@ -49,13 +50,16 @@
 // Reading keys in place, with no gather, is E2 (band_attention.cu).
 //
 // The biases are finite (-100 outside the pooled grid, ln(multiplicity) on
-// deduped slots, -1e9 on padding frames); keys past a panel's end get -inf.
-// Every 64-key tile holds at least one in-range key, so the running max is
-// finite after the first tile and no row is ever all -inf.
+// deduped slots, -1e9 on padding frames); keys past the panel's end get
+// -inf. Every key tile holds at least one in-range key, so the running max
+// is finite after the first tile and no row is ever all -inf.
 #include <cmath>
+#include <cstdint>
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
+#include <dlfcn.h>
 
 #include "common.cuh"
-#include "flash_mma.cuh"
 
 namespace e2fgvi {
 
@@ -154,14 +158,11 @@ __device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
 
 __global__ void __launch_bounds__(kThreads, 1)
 focal_attention_tf32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ ko,
-                            const float* __restrict__ vo,
-                            const float* __restrict__ kg,
-                            const float* __restrict__ vg,
-                            const float* __restrict__ bias_o,
-                            const float* __restrict__ bias_g,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ bias,
                             float* __restrict__ out, int heads, int nwin,
-                            int nt, int S, int nq, int no) {
+                            int nq, int nk, int ld) {
   extern __shared__ __align__(128) float smem[];
   float* Qs = smem;                   // [kBQ][kHD], swizzled
   float* Ks = Qs + kBQ * kHD;         // [2][kBK][kHD], swizzled
@@ -175,10 +176,9 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
   const int h = blockIdx.y;
   const int bw = blockIdx.z;              // b * nwin + w
   const int b = bw / nwin, w = bw % nwin;
-  const long long bhw = ((long long)b * heads + h) * nwin + w;
-  const int ng = nt * S;
-  const int tiles_o = (no + kBK - 1) / kBK;
-  const int tiles = tiles_o + (ng + kBK - 1) / kBK;
+  const long long panel = ((long long)b * heads + h) * nwin + w;
+  const int tiles = (nk + kBK - 1) / kBK;
+  const float* brow = bias + (long long)bw * ld;
 
   // the copies: thread tid moves chunk tid % 32 of rows
   // tid / 32 + kRowStep * i
@@ -186,39 +186,24 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
   for (int i = 0; i < kBQ / kRowStep; ++i) {
     const int r = cr + kRowStep * i;
     const bool ok = q0 + r < nq;
-    cp_async16(Qs + swz(r, cc), ok ? q + (bhw * nq + q0 + r) * kHD + cc * 4
-                                   : q, ok);
+    cp_async16(Qs + swz(r, cc),
+               ok ? q + (panel * nq + q0 + r) * kHD + cc * 4 : q, ok);
   }
   auto load_tile = [&](int it, int st) {
-    const bool own = it < tiles_o;
-    const int j0 = (own ? it : it - tiles_o) * kBK;
-    const int nk = own ? no : ng;
-    const float* kp = own ? ko : kg;
-    const float* vp = own ? vo : vg;
+    const int j0 = it * kBK;
 #pragma unroll
     for (int i = 0; i < kBK / kRowStep; ++i) {
       const int r = cr + kRowStep * i;
       const int jj = j0 + r;
       const bool ok = jj < nk;
-      long long row = 0;
-      if (ok) {
-        if (own) {
-          row = bhw * no + jj;
-        } else {
-          const int tt = jj / S, s = jj - tt * S;
-          row = ((((long long)b * heads + h) * nt + tt) * nwin + w) * S + s;
-        }
-      }
-      const long long off = row * kHD + cc * 4;
-      cp_async16(Ks + st * kTile + swz(r, cc), kp + off, ok);
-      cp_async16(Vs + st * kTile + swz(r, cc), vp + off, ok);
+      const long long off = ok ? (panel * nk + jj) * kHD + cc * 4 : 0;
+      cp_async16(Ks + st * kTile + swz(r, cc), k + off, ok);
+      cp_async16(Vs + st * kTile + swz(r, cc), v + off, ok);
     }
     if (tid < kBK) {
       const int jj = j0 + tid;
       const bool ok = jj < nk;
-      const float* bp = own ? bias_o + (long long)b * no
-                            : bias_g + (long long)bw * ng;
-      cp_async4(Bs + st * kBK + tid, ok ? bp + jj : bp, ok);
+      cp_async4(Bs + st * kBK + tid, ok ? brow + jj : brow, ok);
     }
   };
   load_tile(0, 0);
@@ -252,7 +237,7 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
     const float* Kt = Ks + st * kTile;
     const float* Vt = Vs + st * kTile;
     const float* Bt = Bs + st * kBK;
-    const int lim = it < tiles_o ? no - it * kBK : ng - (it - tiles_o) * kBK;
+    const int lim = nk - it * kBK;
 
     // S (16 x 64) = Q K^T. In 16-dim chunk c, k-step 0 takes dims
     // 16c + 4t (A/B column t) and 16c + 4t + 1 (column t + 4), k-step 1
@@ -276,7 +261,7 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) s[n][k] += sl[n][k];
+      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
 
     // online softmax over rows g (s[n][0..1]) and g + 8 (s[n][2..3]);
     // key n*8 + 2t (+1) of the tile, -inf past the panel's end
@@ -349,7 +334,7 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) o[4 * qq + e][k] += acc[e][k];
+        for (int r = 0; r < 4; ++r) o[4 * qq + e][r] += acc[e][r];
     }
   }
 
@@ -360,13 +345,13 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
   }
-  const int ld = heads * kHD;
+  const int ldo = heads * kHD;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = q0 + warp * 16 + g + 8 * i;
     if (r >= nq) continue;
     const float inv = 1.f / l_r[i];
-    float* dst = out + ((long long)bw * nq + r) * ld + h * kHD + 32 * t;
+    float* dst = out + ((long long)bw * nq + r) * ldo + h * kHD + 32 * t;
 #pragma unroll
     for (int qq = 0; qq < 4; ++qq) {
 #pragma unroll
@@ -379,9 +364,8 @@ focal_attention_tf32_kernel(const float* __restrict__ q,
   }
 }
 
-int launch(const void* q, const void* ko, const void* vo, const void* kg,
-           const void* vg, const void* bias_o, const void* bias_g, void* out,
-           int B, int heads, int nwin, int nt, int S, int nq, int no,
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* out, int B, int heads, int nwin, int nq, int nk, int ld,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       focal_attention_tf32_kernel,
@@ -390,138 +374,466 @@ int launch(const void* q, const void* ko, const void* vo, const void* kg,
   if (B == 0 || nq == 0) return (int)cudaGetLastError();
   const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
   focal_attention_tf32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(ko),
-      static_cast<const float*>(vo), static_cast<const float*>(kg),
-      static_cast<const float*>(vg), static_cast<const float*>(bias_o),
-      static_cast<const float*>(bias_g), static_cast<float*>(out), heads,
-      nwin, nt, S, nq, no);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<float*>(out), heads, nwin, nq, nk, ld);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tf32
 
 // ---------------------------------------------------------------------------
-// bfloat16: the same flash loop on tensor cores, FlashAttention-2 style
-// (flash_mma.cuh, shared with E2's band_attention.cu): mma.sync m16n8k16
-// with the logits, the online-softmax state and the output accumulator in
-// registers. This kernel's part is where the rows come from: the own panel
-// and the gathered panel of the per-head window partitions.
+// bfloat16: wgmma + TMA with a producer warpgroup
+//
+// What bounds it: the tensor cores (1.0 TFLOP per serving call against
+// ~1.7 GB of inputs; each K/V tile is reused by 128 queries in shared
+// memory) and, beside them, the softmax's exponentials: 128x128 per tile
+// at 16 a clock on the SM's MUFU is half the time of the tile's two
+// products at the dense bf16 rate. The design:
+// * One block per (128-query tile, head, b*window), 3 warpgroups. The
+//   producer warpgroup gives its registers away (setmaxnreg 24); one of its
+//   threads issues every copy. The two consumer warpgroups (setmaxnreg
+//   240) own 64 query rows each.
+// * Q (128 x 128 bf16, 32 KB) lands once by TMA. K and V run through a
+//   2-stage ring of 128-key x 128-dim tiles (4 x 32 KB) with full/empty
+//   mbarriers, so the next tile's copies are in flight while the consumers
+//   compute; the tile's 128 biases (512 B, -inf padded) ride the same
+//   barrier by a bulk copy. ~162 KB: one block per SM.
+// * Tensor maps are 3-D (hd, rows, panels) with 64-dim boxes and 128-byte
+//   swizzle (a 128-dim row is two boxes); the ragged last key or query
+//   tile reads zeros out of bounds instead of the next panel's rows, and
+//   the -inf bias masks those keys.
+// * S = Q K^T: 8 wgmma m64n128k16 with both operands K-major in shared
+//   memory. The bias is added and the online softmax runs in registers: a
+//   row's max and sum reduce over the 4 lanes of a quad.
+// * O += P V: P is rounded to bf16 in registers (as the JAX kernel rounds
+//   p to v's dtype; the row sums use the unrounded p) and is the register
+//   A operand of 8 wgmma m64n128k16; V is the B operand, MN-major from the
+//   same shared-memory tile (the transpose bit).
+// * A stage returns to the producer once wgmma.wait_group shows that the
+//   P V which read it is done. The epilogue normalizes by the row sum and
+//   writes the head's bf16 stripe; rows past nq are not written.
+// Not done yet: FA3's ping-pong between the two consumers and overlapping
+// one tile's softmax with the next tile's Q K^T.
 // ---------------------------------------------------------------------------
+namespace hopper {
 
-constexpr int kMSmemBytes = 3 * mma::kTileBytes + mma::kBK * 4;
+using bf16 = __nv_bfloat16;
 
-__global__ void __launch_bounds__(mma::kThreads)
-focal_attention_mma_kernel(const mma::bf16* __restrict__ q,
-                           const mma::bf16* __restrict__ ko,
-                           const mma::bf16* __restrict__ vo,
-                           const mma::bf16* __restrict__ kg,
-                           const mma::bf16* __restrict__ vg,
-                           const float* __restrict__ bias_o,
-                           const float* __restrict__ bias_g,
-                           mma::bf16* __restrict__ out, int heads, int nwin,
-                           int nt, int S, int nq, int no) {
-  using mma::bf16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + mma::kBQ * mma::kLd;
-  bf16* Vs = Ks + mma::kBK * mma::kLd;
-  float* Bs = reinterpret_cast<float*>(Vs + mma::kBK * mma::kLd);
+constexpr int kBQ = 128;                 // queries per block
+constexpr int kBK = 128;                 // keys per tile
+constexpr int kStages = 2;
+constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
+constexpr int kConsumers = 256;
+constexpr int kBox = 64;                 // dims per TMA box: 128 bytes
+constexpr int kHalf = 128 * kBox * 2;    // one 128-row box, 16 KB
+constexpr int kTileBytes = 2 * kHalf;    // a 128 x 128 bf16 tile, 32 KB
+constexpr int kQOff = 0;
+constexpr int kKOff = kQOff + kTileBytes;
+constexpr int kVOff = kKOff + kStages * kTileBytes;
+constexpr int kBiasOff = kVOff + kStages * kTileBytes;
+constexpr int kBarOff = kBiasOff + kStages * kBK * 4;
+constexpr int kBars = 1 + 2 * kStages;   // q full, full[], empty[]
+// + 1 KB to align the base to the 128-byte swizzle's 1024-byte period
+constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * mma::kBQ;
-  const int h = blockIdx.y;
-  const int bw = blockIdx.z;                   // b * nwin + w
-  const int b = bw / nwin, w = bw % nwin;
-  const long long bhw = ((long long)b * heads + h) * nwin + w;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
 
-  mma::load_tile(Qs, [&](int r) -> const bf16* {
-    return q0 + r < nq ? q + (bhw * nq + q0 + r) * kHD : nullptr;
-  });
-  __syncthreads();
-  mma::Flash f;
-  f.start(Qs);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
 
-  for (int panel = 0; panel < 2; ++panel) {
-    const int nk = panel == 0 ? no : nt * S;
-    const bf16* kp = panel == 0 ? ko : kg;
-    const bf16* vp = panel == 0 ? vo : vg;
-    for (int j0 = 0; j0 < nk; j0 += mma::kBK) {
-      __syncthreads();  // the previous tile's readers are done
-      auto row_of = [&](int r) -> long long {
-        const int jj = j0 + r;
-        if (jj >= nk) return -1;
-        if (panel == 0) return bhw * no + jj;
-        const int t = jj / S, s = jj % S;
-        return ((((long long)b * heads + h) * nt + t) * nwin + w) * S + s;
-      };
-      mma::load_tile(Ks, [&](int r) -> const bf16* {
-        const long long row = row_of(r);
-        return row >= 0 ? kp + row * kHD : nullptr;
-      });
-      mma::load_tile(Vs, [&](int r) -> const bf16* {
-        const long long row = row_of(r);
-        return row >= 0 ? vp + row * kHD : nullptr;
-      });
-      if (tid < mma::kBK) {
-        const int jj = j0 + tid;
-        float bj = -INFINITY;
-        if (jj < nk) {
-          bj = panel == 0 ? bias_o[(long long)b * no + jj]
-                          : bias_g[(long long)bw * nt * S + jj];
-        }
-        Bs[tid] = bj;
-      }
-      __syncthreads();
-      f.tile(Ks, Vs, Bs);
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait of more
+// than ~2^33 clocks (seconds) is a broken pipeline and traps, so a fault
+// surfaces as a launch error instead of a hung card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == 64) {
+      t0 = clock64();
+    } else if (n > 64 && clock64() - t0 > (1ll << 33)) {
+      __trap();
     }
   }
-  f.finish(out, bw, q0, nq, heads * kHD, h * kHD);
 }
 
-int launch_attention_mma(const void* q, const void* ko, const void* vo,
-                         const void* kg, const void* vg, const void* bias_o,
-                         const void* bias_g, void* out, int B, int heads,
-                         int nwin, int nt, int S, int nq, int no,
-                         cudaStream_t stream) {
+// box (c0, c1, c2) of a 3-D tensor map into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; lbo/sbo in bytes
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma issue/wait points
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define E2FGVI_WGMMA_D                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63}"
+#define E2FGVI_WGMMA_D_OPS(d)                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),        \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),        \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),        \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64x128, f32) = (accumulate ? d : 0) + A (64x16) B (16x128), A and B
+// bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " E2FGVI_WGMMA_D
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : E2FGVI_WGMMA_D_OPS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A (64x16, bf16 in registers) B (16x128, bf16 MN-major in shared
+// memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " E2FGVI_WGMMA_D
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : E2FGVI_WGMMA_D_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+focal_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const float* __restrict__ bias,
+                             bf16* __restrict__ out, int heads, int nwin,
+                             int nq, int nk, int ld) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base + kQOff, sK = base + kKOff, sV = base + kVOff;
+  const uint32_t sB = base + kBiasOff;
+  const float* bias_s =
+      reinterpret_cast<const float*>(smem_raw + (base - raw) + kBiasOff);
+  const uint32_t q_full = base + kBarOff;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * kStages;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int bw = blockIdx.z;               // b * nwin + w
+  const int b = bw / nwin, w = bw - b * nwin;
+  const int panel = (b * heads + h) * nwin + w;
+  const int tiles = (nk + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // producer warpgroup: thread 0 issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      mbar_expect_tx(q_full, kTileBytes);
+      tma_load(sQ, &qmap, q_full, 0, q0, panel);
+      tma_load(sQ + kHalf, &qmap, q_full, kBox, q0, panel);
+      const float* brow = bias + (long long)bw * ld;
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(empty0 + 8 * s, ((j / kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        mbar_expect_tx(full, 2 * kTileBytes + kBK * 4);
+        const int k0 = j * kBK;
+        const uint32_t ks = sK + s * kTileBytes, vs = sV + s * kTileBytes;
+        tma_load(ks, &kmap, full, 0, k0, panel);
+        tma_load(ks + kHalf, &kmap, full, kBox, k0, panel);
+        tma_load(vs, &vmap, full, 0, k0, panel);
+        tma_load(vs + kHalf, &vmap, full, kBox, k0, panel);
+        bulk_load(sB + s * kBK * 4, brow + k0, kBK * 4, full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = tid / 128 - 1;           // consumer: query rows 64c ..
+    const int warp = (tid / 32) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    constexpr float kLog2e = 1.4426950408889634f;
+
+    // A operand: this warpgroup's 64 rows of Q, row r at 128 bytes in each
+    // 64-dim box; k-step kk reads dims 16kk.. (box kk / 4, byte 32 (kk % 4))
+    const uint32_t qa = sQ + c * 64 * 128;
+    float sc[64], o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (scaled by log2 e)
+    float l_r[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(full0 + 8 * s, (j / kStages) & 1);
+      const uint32_t ks = sK + s * kTileBytes, vs = sV + s * kTileBytes;
+
+      // S (64 x 128 keys) = Q K^T
+      fence_regs(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * kHalf + (kk & 3) * 32;
+        wgmma_ss(sc, desc_sw128(qa + off, 16, 1024),
+                 desc_sw128(ks + off, 16, 1024), kk > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+
+      // sc[4i + e]: row g (e < 2) or g + 8, key 8i + 2t + (e & 1); logits
+      // go to base 2 here: exp(x - m) = 2^(x log2e - m log2e)
+      const float* bt = bias_s + s * kBK;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * t);
+        sc[4 * i] = (sc[4 * i] + bb.x) * kLog2e;
+        sc[4 * i + 1] = (sc[4 * i + 1] + bb.y) * kLog2e;
+        sc[4 * i + 2] = (sc[4 * i + 2] + bb.x) * kLog2e;
+        sc[4 * i + 3] = (sc[4 * i + 3] + bb.y) * kLog2e;
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        alpha[r] = exp2_approx(m_r[r] - m_new);
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+      // P, rounded to bf16 as the A operand of P V: k-step kk covers keys
+      // 16kk .. 16kk + 15, i.e. key blocks 2kk and 2kk + 1
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float p0 = exp2_approx(sc[4 * i] - m_r[0]);
+        const float p1 = exp2_approx(sc[4 * i + 1] - m_r[0]);
+        const float p2 = exp2_approx(sc[4 * i + 2] - m_r[1]);
+        const float p3 = exp2_approx(sc[4 * i + 3] - m_r[1]);
+        l_r[0] += p0 + p1;
+        l_r[1] += p2 + p3;
+        pa[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
+        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+
+      // O (64 x 128 dims) += P V; V's k-step kk is keys 16kk.., 2 KB on.
+      // MN-major: 64 dims in a 128-byte row, the next 64 dims one box
+      // (16 KB) on (LBO), the next 8 keys 1 KB on (SBO)
+      fence_regs(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs(o, pa[kk], desc_sw128(vs + kk * 2048, kHalf, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(o);
+      mbar_arrive(empty0 + 8 * s);
+    }
+
+    // o[4i + e]: row g (e < 2) or g + 8, dim 8i + 2t + (e & 1)
+    const int ldo = heads * kHD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+      const int row = q0 + c * 64 + warp * 16 + g + 8 * r;
+      if (row >= nq) continue;
+      const float inv = 1.f / l_r[r];
+      bf16* dst = out + ((long long)bw * nq + row) * ldo + h * kHD + 2 * t;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
+            __floats2bfloat162_rn(o[4 * i + 2 * r] * inv,
+                                  o[4 * i + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up in the libcuda PyTorch has loaded (this
+// library does not link libcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (lib == nullptr) return nullptr;
+    return reinterpret_cast<EncodeTiled>(
+        dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// (hd, rows, panels) bf16 as 64-dim x 128-row boxes, 128-byte swizzle;
+// rows past `rows` read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int panels) {
+  const cuuint64_t dims[3] = {(cuuint64_t)kHD, (cuuint64_t)rows,
+                              (cuuint64_t)panels};
+  const cuuint64_t strides[2] = {(cuuint64_t)kHD * 2,
+                                 (cuuint64_t)rows * kHD * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, 128, 1};
+  const cuuint32_t estride[3] = {1, 1, 1};
+  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                   const_cast<void*>(ptr), dims, strides, box, estride,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           void* out, int B, int heads, int nwin, int nq, int nk, int ld,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      focal_attention_mma_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmemBytes);
+      focal_attention_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || nq == 0) return (int)cudaGetLastError();
-  const dim3 grid((nq + mma::kBQ - 1) / mma::kBQ, heads, B * nwin);
-  using mma::bf16;
-  focal_attention_mma_kernel<<<grid, mma::kThreads, kMSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(ko),
-      static_cast<const bf16*>(vo), static_cast<const bf16*>(kg),
-      static_cast<const bf16*>(vg), static_cast<const float*>(bias_o),
-      static_cast<const float*>(bias_g), static_cast<bf16*>(out), heads,
-      nwin, nt, S, nq, no);
+  if (encoder() == nullptr || ld % kBK != 0 || ld < nk)
+    return (int)cudaErrorInvalidValue;
+  const int panels = B * heads * nwin;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, nq, panels) || !make_map(&kmap, k, nk, panels) ||
+      !make_map(&vmap, v, nk, panels))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
+  focal_attention_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<const float*>(bias),
+      static_cast<bf16*>(out), heads, nwin, nq, nk, ld);
   return (int)cudaGetLastError();
 }
+
+}  // namespace hopper
 
 }  // namespace e2fgvi
 
 // Plain C entry point, loaded with ctypes (kernels/build.py). Makes
 // `device` current for this library's runtime, launches on `stream` and
-// returns cudaGetLastError(); hd must be 128. bfloat16 runs the m16n8k16
-// kernel, float32 the 3xTF32 kernel.
+// returns cudaGetLastError(); hd must be 128 and the bias row stride ld a
+// multiple of 128 (-inf past nk). bfloat16 runs the wgmma kernel, float32
+// the 3xTF32 kernel.
 extern "C" int e2fgvi_focal_attention(int dtype, const void* q,
-                                      const void* ko, const void* vo,
-                                      const void* kg, const void* vg,
-                                      const void* bias_o,
-                                      const void* bias_g, void* out, int B,
-                                      int heads, int nwin, int nt, int S,
-                                      int nq, int no, int hd, int device,
+                                      const void* k, const void* v,
+                                      const void* bias, void* out, int B,
+                                      int heads, int nwin, int nq, int nk,
+                                      int ld, int hd, int device,
                                       void* stream) {
   if (hd != e2fgvi::kHD) return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == e2fgvi::kBFloat16) {
-    return e2fgvi::launch_attention_mma(q, ko, vo, kg, vg, bias_o, bias_g,
-                                        out, B, heads, nwin, nt, S, nq, no,
-                                        s);
+    return e2fgvi::hopper::launch(q, k, v, bias, out, B, heads, nwin, nq, nk,
+                                  ld, s);
   }
-  return e2fgvi::tf32::launch(q, ko, vo, kg, vg, bias_o, bias_g, out, B,
-                              heads, nwin, nt, S, nq, no, s);
+  return e2fgvi::tf32::launch(q, k, v, bias, out, B, heads, nwin, nq, nk, ld,
+                              s);
 }

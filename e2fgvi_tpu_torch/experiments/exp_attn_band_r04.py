@@ -6,9 +6,9 @@ of T = 17 frames, a 20x36 token grid, C = 512, 4 heads, (5, 9) windows,
 explicit torch.Generator; the same normalized tokens and pooled tokens go
 through
 
-  window_attention(K3)   tfocal.window_attention: partition copies, the
-                         k/v gather through the deduplicated key table,
-                         then the K3 kernel
+  window_attention(K3)   tfocal.window_attention: the q partition, one
+                         key panel per window gathered through the
+                         deduplicated key table, then the K3 kernel
   band_attention(E2)     kernels/band_attention.py: q/k/v read in place
                          from the qkv map, keys from static geometry
 

@@ -1,10 +1,12 @@
 """K3 focal window attention: wrapper and plain form.
 
 Counterpart of e2fgvi_tpu/kernels/fused_attention.py; the CUDA kernel is
-csrc/focal_attention.cu. Same interface as the JAX kernel: the per-head
-window partitions q/ko/vo, the gathered rolled + pooled keys, float32
-per-key biases, and a (B*nWin, nq, heads*hd) output. The query and key
-counts need no padding here; the kernel masks ragged tiles itself.
+csrc/focal_attention.cu. Where the JAX kernel takes the window's own keys
+and the gathered rolled + pooled keys as two panels, the port takes one
+contiguous key panel per (b, head, window), own keys first (models/tfocal.py
+builds it with one gather per k and v), and one float32 bias row per
+(b, window) that joins the two panels' biases. The query and key counts need
+no padding; the kernels mask ragged tiles themselves.
 
 The wrapper takes the plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches the kernel or raises. The kernel is
@@ -12,6 +14,7 @@ forward-only. `LAUNCHES` counts its launches.
 """
 
 import torch
+import torch.nn.functional as F
 
 from e2fgvi_tpu_torch.kernels import build
 from e2fgvi_tpu_torch.kernels.deform import check_cuda_inputs
@@ -20,73 +23,66 @@ LAUNCHES = {"focal_attention": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 128
+KEY_TILE = 128      # the bf16 kernel's key tile: the bias row's stride unit
 
 
-def focal_attention_plain(q, ko, vo, k_gath, v_gath, bias_o, bias_g, b,
-                          heads):
-    """The JAX package's `_xla_reference` in float32 torch.
+def focal_attention_plain(q, k, v, bias, b, heads):
+    """softmax(q k^T + bias) v per (b, head, window) in float32 torch.
 
-    q/ko/vo: (b*heads*nwin, nq|no, hd); k_gath/v_gath: (b*heads, t, nwin,
-    s, hd); bias_o: (b, 1, no); bias_g: (b*nwin, 1, t*s).
-    Returns (b*nwin, nq, heads*hd) in q's dtype."""
-    bh, t, nwin, s, hd = k_gath.shape
-    nq, no = q.shape[1], ko.shape[1]
+    q: (b*heads*nwin, nq, hd); k, v: (b*heads*nwin, nk, hd); bias:
+    (b*nwin, nk). Returns (b*nwin, nq, heads*hd) in q's dtype."""
+    nq, hd = q.shape[1], q.shape[2]
+    nk = k.shape[1]
+    nwin = q.shape[0] // (b * heads)
     qf = q.float().reshape(b, heads, nwin, nq, hd)
-    kow = ko.float().reshape(b, heads, nwin, no, hd)
-    vow = vo.float().reshape(b, heads, nwin, no, hd)
-    k = k_gath.float().reshape(b, heads, t, nwin, s, hd)
-    k = k.permute(0, 1, 3, 2, 4, 5).reshape(b, heads, nwin, t * s, hd)
-    v = v_gath.float().reshape(b, heads, t, nwin, s, hd)
-    v = v.permute(0, 1, 3, 2, 4, 5).reshape(b, heads, nwin, t * s, hd)
-    s1 = torch.einsum("bhwqd,bhwkd->bhwqk", qf, kow)
-    s1 = s1 + bias_o.float().reshape(b, 1, 1, 1, no)
-    s2 = torch.einsum("bhwqd,bhwkd->bhwqk", qf, k)
-    s2 = s2 + bias_g.float().reshape(b, 1, nwin, 1, t * s)
-    p = torch.softmax(torch.cat([s1, s2], dim=-1), dim=-1)
-    o = torch.einsum("bhwqk,bhwkd->bhwqd", p[..., :no], vow)
-    o = o + torch.einsum("bhwqk,bhwkd->bhwqd", p[..., no:], v)
+    kf = k.float().reshape(b, heads, nwin, nk, hd)
+    vf = v.float().reshape(b, heads, nwin, nk, hd)
+    s = torch.einsum("bhwqd,bhwkd->bhwqk", qf, kf)
+    s = s + bias.float().reshape(b, 1, nwin, 1, nk)
+    o = torch.einsum("bhwqk,bhwkd->bhwqd", torch.softmax(s, dim=-1), vf)
     return o.permute(0, 2, 3, 1, 4).reshape(b * nwin, nq, heads * hd).to(
         q.dtype)
 
 
-def focal_attention(q, ko, vo, k_gath, v_gath, bias_o, bias_g, b, heads):
-    """softmax over [own keys | gathered keys] with per-key bias, times v.
+def padded_bias(bias):
+    """The kernels' bias rows: (b*nwin, ld) float32, ld the key count
+    rounded up to a whole key tile, -inf past the keys."""
+    nk = bias.shape[1]
+    ld = -(-nk // KEY_TILE) * KEY_TILE
+    return F.pad(bias.float(), (0, ld - nk), value=float("-inf"))
+
+
+def focal_attention(q, k, v, bias, b, heads):
+    """softmax over the key panel with per-key bias, times v.
 
     Shapes as in focal_attention_plain; hd must be 128 on CUDA. q, k and v
-    share one dtype (float32 or bfloat16); the biases are float32."""
+    share one dtype (float32 or bfloat16); the bias is float32."""
     if q.device.type == "cpu":
-        return focal_attention_plain(q, ko, vo, k_gath, v_gath, bias_o,
-                                     bias_g, b, heads)
-    q, ko, vo = q.contiguous(), ko.contiguous(), vo.contiguous()
-    k_gath, v_gath = k_gath.contiguous(), v_gath.contiguous()
-    bias_o = bias_o.float().contiguous()
-    bias_g = bias_g.float().contiguous()
-    check_cuda_inputs("focal_attention", q, ko, vo, k_gath, v_gath, bias_o,
-                      bias_g)
-    if q.dtype not in _DTYPES or any(
-            t.dtype != q.dtype for t in (ko, vo, k_gath, v_gath)):
+        return focal_attention_plain(q, k, v, bias, b, heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    panels, nq, hd = q.shape
+    nk = k.shape[1]
+    nwin = panels // (b * heads) if b * heads else 0
+    if (nk == 0 or panels != b * heads * nwin or k.shape != (panels, nk, hd)
+            or v.shape != k.shape or bias.shape != (b * nwin, nk)):
+        raise ValueError("focal_attention: inconsistent shapes")
+    bias = padded_bias(bias).contiguous()
+    check_cuda_inputs("focal_attention", q, k, v, bias)
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("focal_attention: q/k/v must share one dtype, "
                          "float32 or bfloat16")
-    bh, t, nwin, s, hd = k_gath.shape
-    nq, no = q.shape[1], ko.shape[1]
     if hd != HEAD_DIM:
         raise ValueError(f"focal_attention: head dim {hd}, the kernel "
                          f"takes {HEAD_DIM}")
-    if any(t.data_ptr() % 16 for t in (q, ko, vo, k_gath, v_gath)):
+    # TMA (bf16) and 16-byte cp.async (f32) read from 16-byte addresses
+    if any(t.data_ptr() % 16 for t in (q, k, v, bias)):
         raise ValueError("focal_attention: q/k/v must be 16-byte aligned")
-    if (bh != b * heads or q.shape != (b * heads * nwin, nq, hd)
-            or ko.shape != (b * heads * nwin, no, hd)
-            or vo.shape != ko.shape or v_gath.shape != k_gath.shape
-            or bias_o.shape != (b, 1, no)
-            or bias_g.shape != (b * nwin, 1, t * s)):
-        raise ValueError("focal_attention: inconsistent shapes")
     out = torch.empty((b * nwin, nq, heads * hd), dtype=q.dtype,
                       device=q.device)
     err = build.library().e2fgvi_focal_attention(
-        _DTYPES[q.dtype], q.data_ptr(), ko.data_ptr(), vo.data_ptr(),
-        k_gath.data_ptr(), v_gath.data_ptr(), bias_o.data_ptr(),
-        bias_g.data_ptr(), out.data_ptr(), b, heads, nwin, t, s, nq, no, hd,
-        *build.stream_args(q))
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, heads, nwin, nq, nk,
+        bias.shape[1], hd, *build.stream_args(q))
     build.check(err, "focal_attention")
     LAUNCHES["focal_attention"] += 1
     return out

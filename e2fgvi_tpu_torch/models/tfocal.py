@@ -7,11 +7,14 @@ checkpoint's layout: patch features are channel-major (c*49 + k), which is
 the order F.unfold / F.fold use, so no permutation is needed.
 
 Window attention is the JAX package's fused formulation
-(_window_attention_fused): per-head q/k/v maps, the window's own keys as
-one panel, and the rolled + pooled keys gathered through the deduplicated
-static key table as the other, with per-key biases (ln(multiplicity) on
-deduplicated slots, -100 outside the pooled grid, -1e9 on padding frames).
-The softmax over both panels is K3 (kernels/focal_attention.py).
+(_window_attention_fused): per-head q/k/v maps, the window's own keys and
+the rolled + pooled keys gathered through the deduplicated static key
+table, with per-key biases (ln(multiplicity) on deduplicated slots, -100
+outside the pooled grid, -1e9 on padding frames). Where the JAX package
+passes the two key sets as two panels, the port gathers both into one
+contiguous key panel per window (one index_select per k and v) with one
+joined bias row. The softmax over the panel is K3
+(kernels/focal_attention.py).
 
 Static geometry at the base model: a 20x36 token grid, (5, 9) windows,
 (2, 4) expansion, one pooled level of 4x4 window tokens. The HQ model
@@ -275,13 +278,26 @@ def _key_gather_dedup(h, w, wh, ww, eh, ew, pooled_geom):
 
 
 @lru_cache(maxsize=8)
-def _window_tables(h, w, wh, ww, eh, ew, nwh, nww, device):
-    """The deduplicated key table on `device`: (idx (nwin*S,) int64,
-    bias (nwin, S) float32, S)."""
+def _window_tables(h, w, wh, ww, eh, ew, nwh, nww, t, device):
+    """The windows' static key tables on `device`: (panel index, bias
+    (nwin, S) float32, S).
+
+    The panel index gives each window's key panel as rows of the per-frame
+    sources [fine tokens (h*w) | pooled tokens | one zero slot] stacked
+    over the t frames: the own window's tokens in the queries' (frame, y,
+    x) order, then frame by frame the deduplicated rolled + pooled keys;
+    (nwin * (t*wh*ww + t*S),) int64, window-major."""
     pk = (2 * (wh // 2) + 1, 2 * (ww // 2) + 1)
     geom = (nwh, nww, pk[0], pk[1], pk[0] // 2, pk[1] // 2)
     idx, bias = _key_gather_dedup(h, w, wh, ww, eh, ew, geom)
-    return (torch.as_tensor(idx.reshape(-1), dtype=torch.long,
+    frame = (np.arange(t) * (h * w + nwh * nww + 1))[None, :, None]
+    ry, rx = np.divmod(np.arange(wh * ww), ww)
+    wy, wx = np.divmod(np.arange((h // wh) * (w // ww)), w // ww)
+    own = (wy[:, None] * wh + ry) * w + wx[:, None] * ww + rx
+    nwin = own.shape[0]
+    panel = np.concatenate([(frame + own[:, None]).reshape(nwin, -1),
+                            (frame + idx[:, None]).reshape(nwin, -1)], 1)
+    return (torch.as_tensor(panel.reshape(-1), dtype=torch.long,
                             device=device),
             torch.as_tensor(bias, device=device), idx.shape[1])
 
@@ -313,44 +329,34 @@ def window_attention(attn, x, pooled, num_heads, window_size, expand_size,
     pq = pq.reshape(b, nwh, nww, t, 3, num_heads, hd).permute(
         4, 0, 5, 3, 1, 2, 6)                  # (3, B, heads, T, nWh, nWw, hd)
 
-    idx, bias_rows, s_keys = _window_tables(h, w, wh, ww, eh, ew, nwh, nww,
-                                            x.device)
+    panel_idx, bias_rows, s_keys = _window_tables(h, w, wh, ww, eh, ew, nwh,
+                                                  nww, t, x.device)
+    nq = t * wh * ww
+    nk = nq + t * s_keys
 
-    def gather(z, zp):
+    def panel(z, zp):
+        """(B*heads*nWin, nk, hd): own keys, then the gathered ones."""
         src = torch.cat([
             z.reshape(b * num_heads, t, h * w, hd),
             zp.reshape(b * num_heads, t, nwh * nww, hd),
             z.new_zeros((b * num_heads, t, 1, hd))], dim=2)
-        g = src.index_select(2, idx)
-        return g.reshape(b * num_heads, t, nwin, s_keys, hd)
+        src = src.reshape(b * num_heads, -1, hd)
+        return src.index_select(1, panel_idx).reshape(-1, nk, hd)
 
-    k_gath = gather(k, pq[1])
-    v_gath = gather(v, pq[2])
+    qw = (q * hd ** -0.5).reshape(b, num_heads, t, nwy, wh, nwx, ww, hd)
+    qw = qw.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, nq, hd)
 
-    nq = t * wh * ww
-
-    def partition(z):
-        zw = z.reshape(b, num_heads, t, nwy, wh, nwx, ww, hd)
-        return zw.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
-            b * num_heads * nwin, nq, hd)
-
-    qw = partition(q * hd ** -0.5)
-    ko = partition(k)
-    vo = partition(v)
-
-    bias = bias_rows[None, :, None, :].expand(b, nwin, t, s_keys)
+    bias_g = bias_rows[None, :, None, :].expand(b, nwin, t, s_keys)
+    bias_o = torch.zeros((b, nwin, t, wh * ww), device=x.device)
     if frame_valid is not None:
-        fv = frame_valid.to(x.device)
-        bias = torch.where(fv[:, None, :, None], bias,
-                           torch.full_like(bias, -1e9))
-        bias_o = torch.where(fv, 0.0, -1e9).float()
-        bias_o = bias_o[:, :, None].expand(b, t, wh * ww).reshape(b, 1, nq)
-    else:
-        bias_o = torch.zeros((b, 1, nq), device=x.device)
-    bias = bias.reshape(b * nwin, 1, t * s_keys)
+        fv = frame_valid.to(x.device)[:, None, :, None]
+        bias_g = torch.where(fv, bias_g, torch.full_like(bias_g, -1e9))
+        bias_o = torch.where(fv, bias_o, torch.full_like(bias_o, -1e9))
+    bias = torch.cat([bias_o.reshape(b, nwin, nq),
+                      bias_g.reshape(b, nwin, t * s_keys)], -1)
 
-    out = focal_attention(qw, ko, vo, k_gath, v_gath, bias_o, bias, b,
-                          num_heads)
+    out = focal_attention(qw, panel(k, pq[1]), panel(v, pq[2]),
+                          bias.reshape(b * nwin, nk), b, num_heads)
     return linear(out, attn.proj.weight, attn.proj.bias)
 
 

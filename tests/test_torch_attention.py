@@ -1,6 +1,7 @@
 """K3's plain version and the port's focal window attention against the JAX
-package, float32, tolerance 2e-4; the port's static key and bias tables
-equal the JAX package's."""
+package, float32, tolerance 2e-4; a float32 emulation of the bf16 kernel's
+tile schedule against the plain version; the port's static key and bias
+tables equal the JAX package's."""
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def _kernel_inputs(rng, b=1, heads=2, nwin=2, t=2, s=16, hd=8, nq=16, no=8):
+    """The JAX kernel's two-panel inputs."""
     q = rng.standard_normal((b * heads * nwin, nq, hd)).astype(np.float32)
     ko = rng.standard_normal((b * heads * nwin, no, hd)).astype(np.float32)
     vo = rng.standard_normal((b * heads * nwin, no, hd)).astype(np.float32)
@@ -31,12 +33,47 @@ def _kernel_inputs(rng, b=1, heads=2, nwin=2, t=2, s=16, hd=8, nq=16, no=8):
     return q, ko, vo, kg, vg, bias_o, bias_g, b, heads
 
 
+def _panel(q, ko, vo, kg, vg, bias_o, bias_g, b, heads):
+    """The JAX kernel's inputs in the port's layout: per (b, head, window)
+    one key panel [own keys | gathered keys frame by frame], one bias row
+    per (b, window)."""
+    bh, t, nwin, s, hd = kg.shape
+    no = ko.shape[1]
+
+    def join(own, gath):
+        g = gath.reshape(b, heads, t, nwin, s, hd).transpose(0, 1, 3, 2, 4, 5)
+        return np.concatenate(
+            [own.reshape(b, heads, nwin, no, hd),
+             g.reshape(b, heads, nwin, t * s, hd)], 3).reshape(
+                 b * heads * nwin, no + t * s, hd)
+
+    bias = np.concatenate(
+        [np.broadcast_to(bias_o.reshape(b, 1, no), (b, nwin, no)),
+         bias_g.reshape(b, nwin, t * s)], 2).reshape(b * nwin, no + t * s)
+    return (torch.from_numpy(q), torch.from_numpy(join(ko, kg)),
+            torch.from_numpy(join(vo, vg)), torch.from_numpy(bias), b, heads)
+
+
 def test_k3_plain_matches_fused_interpret_and_xla(rng):
     *arrs, b, heads = _kernel_inputs(rng)
     want_k = jfa.fused_focal_attention(*map(jnp.asarray, arrs), b, heads,
                                        True)
     want_x = jfa._xla_reference(*map(jnp.asarray, arrs), b, heads)
-    got = fa.focal_attention(*map(torch.from_numpy, arrs), b, heads).numpy()
+    got = fa.focal_attention(*_panel(*arrs, b, heads)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want_k), **TOL)
+    np.testing.assert_allclose(got, np.asarray(want_x), **TOL)
+
+
+def test_k3_plain_matches_jax_at_serving_shape(rng):
+    """One (b, window) pair per head at the base model's serving geometry:
+    hd 128, nq = 17*45 queries, 765 own + 17*125 gathered keys."""
+    *arrs, b, heads = _kernel_inputs(rng, b=1, heads=2, nwin=1, t=17, s=125,
+                                     hd=128, nq=765, no=765)
+    arrs[0] *= np.float32(128 ** -0.5)
+    want_k = jfa.fused_focal_attention(*map(jnp.asarray, arrs), b, heads,
+                                       True)
+    want_x = jfa._xla_reference(*map(jnp.asarray, arrs), b, heads)
+    got = fa.focal_attention(*_panel(*arrs, b, heads)).numpy()
     np.testing.assert_allclose(got, np.asarray(want_k), **TOL)
     np.testing.assert_allclose(got, np.asarray(want_x), **TOL)
 
@@ -91,8 +128,86 @@ def test_k3_plain_ragged_shapes(rng):
     *arrs, b, heads = _kernel_inputs(rng, b=2, heads=2, nwin=3, t=3, s=7,
                                      hd=8, nq=13, no=13)
     want = jfa._xla_reference(*map(jnp.asarray, arrs), b, heads)
-    got = fa.focal_attention(*map(torch.from_numpy, arrs), b, heads).numpy()
+    got = fa.focal_attention(*_panel(*arrs, b, heads)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def _emulate_wgmma_kernel(q, k, v, bias, b, heads, bq=128, bk=128):
+    """The bf16 kernel's schedule (csrc/focal_attention.cu, namespace
+    hopper) in float32: 128-query blocks and 128-key tiles; rows past the
+    panel's end read as zeros (TMA's out-of-bounds fill) with the wrapper's
+    -inf bias padding; logits in base 2 with a running max and sum; P
+    rounded to bf16 for P V, the row sums from the unrounded P."""
+    log2e = np.float32(np.log2(np.e))
+    panels, nq, hd = q.shape
+    nk = k.shape[1]
+    nwin = panels // (b * heads)
+    bias_p = fa.padded_bias(bias)
+    ld = bias_p.shape[1]
+    kp = torch.zeros((panels, ld, hd))
+    vp = torch.zeros((panels, ld, hd))
+    kp[:, :nk], vp[:, :nk] = k, v
+    nq_pad = -(-nq // bq) * bq
+    qp = torch.zeros((panels, nq_pad, hd))
+    qp[:, :nq] = q
+    out = torch.empty((b * nwin, nq, heads * hd))
+    for p in range(panels):
+        bb, rem = divmod(p, heads * nwin)
+        h, w = divmod(rem, nwin)
+        brow = bias_p[bb * nwin + w]
+        for q0 in range(0, nq_pad, bq):
+            qt = qp[p, q0:q0 + bq]
+            m = torch.full((bq, 1), float("-inf"))
+            l = torch.zeros((bq, 1))
+            o = torch.zeros((bq, hd))
+            for k0 in range(0, ld, bk):
+                s = (qt @ kp[p, k0:k0 + bk].T + brow[k0:k0 + bk]) * log2e
+                m_new = torch.maximum(m, s.max(1, keepdim=True).values)
+                alpha = torch.exp2(m - m_new)
+                pt = torch.exp2(s - m_new)
+                l = l * alpha + pt.sum(1, keepdim=True)
+                o = o * alpha + _bf16(pt) @ vp[p, k0:k0 + bk]
+                m = m_new
+            rows = min(bq, nq - q0)
+            out[bb * nwin + w, q0:q0 + rows, h * hd:(h + 1) * hd] = (
+                o / l)[:rows]
+    return out
+
+
+@pytest.mark.parametrize("case", ["serving", "ragged", "first_frame_only"])
+def test_k3_bf16_tile_schedule_matches_plain(case):
+    """The emulated kernel schedule on bf16-rounded inputs against the
+    plain version at <= 1e-2 relative: catches an off-by-one in the key
+    tiling, the query tiling or the masking before a run on the card.
+    serving: nk = 765 + 17*125 = 2890, 22 full key tiles and a ragged one,
+    nq = 765 over 6 query blocks; ragged: 129 queries and 129 keys (one
+    past a tile each); first_frame_only: every key past the first
+    frame's 45 own and 125 gathered ones at -1e9, so whole tiles of
+    padding come after the first."""
+    rng = np.random.default_rng(3)
+    nq, nk, b, heads, nwin = {"serving": (765, 2890, 1, 1, 2),
+                              "ragged": (129, 129, 2, 2, 1),
+                              "first_frame_only": (765, 2890, 1, 2, 1)}[case]
+    hd = 128
+    q, k, v = (_bf16(torch.from_numpy(rng.standard_normal(
+        (b * heads * nwin, n, hd)).astype(np.float32) * sc))
+        for n, sc in ((nq, hd ** -0.5), (nk, 1.0), (nk, 1.0)))
+    bias = torch.from_numpy(rng.choice(
+        np.array([0.0, -100.0, np.log(2.0)], np.float32),
+        size=(b * nwin, nk)))
+    if case == "first_frame_only":
+        keep = torch.zeros(nk, dtype=torch.bool)
+        keep[:45] = True
+        keep[765:765 + 125] = True
+        bias = torch.where(keep, bias, torch.full_like(bias, -1e9))
+    want = fa.focal_attention_plain(q, k, v, bias, b, heads)
+    got = _emulate_wgmma_kernel(q, k, v, bias, b, heads)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() / want.abs().max() <= 1e-2
 
 
 def _attn_params(rng, c):

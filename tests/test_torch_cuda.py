@@ -62,50 +62,81 @@ def test_flow_warp_matches_plain(gen, c):
                                rtol=1e-5, atol=1e-4)
 
 
-# (nq, no, t, s, padded frames): ragged tiles; a panel that ends one key
-# into a 64-key tile (no 65, t*s 129); one query, and one past a query
-# block (64 rows in bf16, 128 in float32); every frame padded but the last
-# (own keys 45 per frame), so the first key tile of each panel is all
-# padding
-_K3_CASES = {"ragged": (70, 70, 3, 37, "last"),
-             "one_key_into_tile": (70, 65, 3, 43, "last"),
-             "nq_1": (1, 70, 3, 37, "last"),
-             "nq_65": (65, 70, 3, 37, "last"),
-             "nq_129": (129, 70, 3, 37, "last"),
-             "all_but_one_padded": (135, 135, 3, 37, "all_but_last")}
+def _k3_inputs(gen, dtype, b, heads, nwin, nq, no, t, s):
+    """q and one key panel [own no | gathered t*s] per (b, head, window);
+    the bias row per (b, window) is zero but for a few -100 keys (the
+    caller adds its padding frames)."""
+    nk = no + t * s
+    q = _randn(gen, b * heads * nwin, nq, 128, std=128 ** -0.5).to(dtype)
+    k, v = (_randn(gen, b * heads * nwin, nk, 128).to(dtype)
+            for _ in range(2))
+    bias = torch.zeros((b * nwin, nk), device="cuda")
+    bias[:, no + 5:no + 9] = -100.0
+    return q, k, v, bias
 
 
-@pytest.mark.parametrize("case", list(_K3_CASES))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_focal_attention_matches_plain(gen, dtype, case):
-    nq, no, t, s, padded = _K3_CASES[case]
-    b, heads, nwin, hd = 2, 2, 3, 128
-    q = _randn(gen, b * heads * nwin, nq, hd, std=hd ** -0.5).to(dtype)
-    ko, vo = (_randn(gen, b * heads * nwin, no, hd).to(dtype)
-              for _ in range(2))
-    kg, vg = (_randn(gen, b * heads, t, nwin, s, hd).to(dtype)
-              for _ in range(2))
-    bias_o = torch.zeros((b, 1, no), device="cuda")
-    bias_g = torch.zeros((b * nwin, 1, t * s), device="cuda")
-    bias_g[:, :, 5:9] = -100.0
-    if padded == "last":
-        bias_o[1, :, -20:] = -1e9
-        bias_g[:, :, -s:] = -1e9
-    else:
-        bias_o[:, :, :-45] = -1e9
-        bias_g[:, :, :-s] = -1e9
+def _check_k3(q, k, v, bias, b, heads, dtype):
     before = fa.LAUNCHES["focal_attention"]
-    got = fa.focal_attention(q, ko, vo, kg, vg, bias_o, bias_g, b, heads)
+    got = fa.focal_attention(q, k, v, bias, b, heads)
     assert fa.LAUNCHES["focal_attention"] == before + 1
-    want = fa.focal_attention_plain(q.float(), ko.float(), vo.float(),
-                                    kg.float(), vg.float(), bias_o, bias_g,
+    want = fa.focal_attention_plain(q.float(), k.float(), v.float(), bias,
                                     b, heads)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
         # 3xTF32 keeps float32 accuracy; one TF32 pass would be ~1e-4 off
         assert (got - want).abs().max() <= 1e-5
     else:
+        assert torch.isfinite(got.float()).all()
         assert (got.float() - want).abs().max() / want.abs().max() < 5e-2
+
+
+# (nq, no, t, s, padded frames): ragged tiles; a panel that ends one key
+# into a key tile (no + t*s = 194: 64-key tiles in float32; 129: one past a
+# 128-key tile in bf16); one query, and one past a query block (128 rows);
+# every frame padded but the last (own keys 45 per frame), so the first
+# key tiles of each panel are all padding
+_K3_CASES = {"ragged": (70, 70, 3, 37, "last"),
+             "one_key_into_tile": (70, 65, 3, 43, "last"),
+             "nq_1": (1, 70, 3, 37, "last"),
+             "nq_65": (65, 70, 3, 37, "last"),
+             "nq_129": (129, 70, 3, 37, "last"),
+             "all_but_one_padded": (135, 135, 3, 37, "all_but_last"),
+             "one_key_into_bf16_tile": (129, 45, 3, 28, "last")}
+
+
+@pytest.mark.parametrize("case", list(_K3_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_focal_attention_matches_plain(gen, dtype, case):
+    nq, no, t, s, padded = _K3_CASES[case]
+    b, heads, nwin = 2, 2, 3
+    q, k, v, bias = _k3_inputs(gen, dtype, b, heads, nwin, nq, no, t, s)
+    if padded == "last":
+        bias[nwin:, no - 20:no] = -1e9      # the second batch element
+        bias[:, -s:] = -1e9
+    else:
+        bias[:, :no - 45] = -1e9
+        bias[:, no:-s] = -1e9
+    _check_k3(q, k, v, bias, b, heads, dtype)
+
+
+@pytest.mark.parametrize("s", [125, 149, 153])
+@pytest.mark.parametrize("b", [1, 14])
+def test_focal_attention_bf16_one_valid_frame(gen, b, s):
+    """The bf16 kernel at the three serving key counts per frame (base,
+    HQ 864x480, 1296x720) and T=17, on windows whose padding frames leave
+    one frame valid: the first in window 0 of each batch element, the last
+    in window 1."""
+    t, nwin, heads = 17, 2, 4
+    nq = t * 45
+    q, k, v, bias = _k3_inputs(gen, torch.bfloat16, b, heads, nwin, nq, nq,
+                               t, s)
+    keep = torch.zeros((b * nwin, t), dtype=torch.bool, device="cuda")
+    keep[::2, 0] = True
+    keep[1::2, -1] = True
+    keep = torch.cat([keep.repeat_interleave(45, 1),
+                      keep.repeat_interleave(s, 1)], 1)
+    bias = torch.where(keep, bias, torch.full_like(bias, -1e9))
+    _check_k3(q, k, v, bias, b, heads, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +180,7 @@ def test_hq_focal_attention_matches_plain(gen, dtype):
     from e2fgvi_tpu_torch.models import tfocal
     b, t, heads, hd = 2, 4, 4, 128
     fh, fw = tfocal.token_grid((60, 216))
-    _, bias_rows, s = tfocal._window_tables(fh, fw, 5, 9, 2, 4, 4, 8,
+    _, bias_rows, s = tfocal._window_tables(fh, fw, 5, 9, 2, 4, 4, 8, t,
                                             torch.device("cuda"))
     nwin, nq = (fh // 5) * (fw // 9), t * 45
     assert (fh, fw, nwin, s) == (20, 72, 32, 141)
@@ -157,17 +188,16 @@ def test_hq_focal_attention_matches_plain(gen, dtype):
     fv[0, 2] = False                    # an end-padded window
     bias_g = bias_rows[None, :, None, :].expand(b, nwin, t, s)
     bias_g = torch.where(fv[:, None, :, None], bias_g, -1e9)
-    bias_g = bias_g.reshape(b * nwin, 1, t * s).contiguous()
-    bias_o = torch.where(fv, 0.0, -1e9)[:, :, None].expand(b, t, 45)
-    bias_o = bias_o.reshape(b, 1, nq).contiguous()
+    bias_o = torch.where(fv, 0.0, -1e9)[:, None, :, None].expand(
+        b, nwin, t, 45)
+    bias = torch.cat([bias_o.reshape(b, nwin, nq),
+                      bias_g.reshape(b, nwin, t * s)], -1)
+    bias = bias.reshape(b * nwin, -1).contiguous()
     q = _randn(gen, b * heads * nwin, nq, hd, std=hd ** -0.5).to(dtype)
-    ko, vo = (_randn(gen, b * heads * nwin, nq, hd).to(dtype)
-              for _ in range(2))
-    kg, vg = (_randn(gen, b * heads, t, nwin, s, hd).to(dtype)
-              for _ in range(2))
-    got = fa.focal_attention(q, ko, vo, kg, vg, bias_o, bias_g, b, heads)
-    want = fa.focal_attention_plain(q.float(), ko.float(), vo.float(),
-                                    kg.float(), vg.float(), bias_o, bias_g,
+    k, v = (_randn(gen, b * heads * nwin, nq + t * s, hd).to(dtype)
+            for _ in range(2))
+    got = fa.focal_attention(q, k, v, bias, b, heads)
+    want = fa.focal_attention_plain(q.float(), k.float(), v.float(), bias,
                                     b, heads)
     _assert_close_to_plain(got, want, dtype, (2e-4, 2e-4), 5e-2, 1e-5)
 

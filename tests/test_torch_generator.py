@@ -198,24 +198,102 @@ def test_protocol_matches_reference_golden(model):
     np.testing.assert_allclose(ssim, data["ssim"], atol=2e-4)
 
 
-def test_port_imports_without_jax():
-    """Every module of the port (and chip_smoke.py) imports with jax
-    unimportable."""
-    code = (
-        "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
+_BLOCKED = ("jax", "e2fgvi_tpu")
+# run in a fresh interpreter with jax and the JAX package unimportable;
+# each case ends by checking that neither was loaded
+_NO_JAX_CASES = {
+    "modules": (
+        "import pkgutil, importlib\n"
         "import e2fgvi_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "'e2fgvi_tpu_torch.')]\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
-        "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
-        "if sys.modules[m] is not None]\n"
-        "print(len(names))\n")
+        "print(len(names))\n"),
+    "inpaint": (
+        "from e2fgvi_tpu_torch.cli import inpaint\n"
+        "out = inpaint.main(['-v', 'examples/mini', '-m', "
+        "'examples/mini_mask', '-c', 'none', '--random_weights', "
+        "'--model', 'e2fgvi_hq', '--set_size', '--width', '108', "
+        "'--height', '60', '--device', 'cpu', '--out', TMP])\n"
+        "import os\n"
+        "print(os.path.getsize(out))\n"),
+    "evaluate": (
+        "import os\n"
+        "from chip_smoke import write_davis\n"
+        "from e2fgvi_tpu_torch.cli import evaluate\n"
+        "write_davis(TMP, 1, 6, 120, 216)\n"
+        "psnr, ssim, vfid = evaluate.main(['--dataset', 'davis', "
+        "'--data_root', TMP, '--ckpt', 'none', '--random_weights', "
+        "'--model', 'e2fgvi_hq', '--width', '216', '--height', '120', "
+        "'--i3d_ckpt', os.path.join(TMP, 'absent.pt'), '--device', 'cpu', "
+        "'--out', os.path.join(TMP, 'results')])\n"
+        "print(int(psnr > 0 and 0 < ssim <= 1))\n"),
+}
+
+
+def _port_sources():
+    pkg = os.path.join(ROOT, "e2fgvi_tpu_torch")
+    files = [os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+             if f.endswith(".py")]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _blocked_imports(path):
+    """(line, module) of every import of jax or the JAX package in the file,
+    at any depth (inside functions too), including importlib.import_module
+    and __import__ calls on a constant name."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and ast.unparse(node.func) in ("importlib.import_module",
+                                             "import_module", "__import__")):
+            names = [node.args[0].value]
+        found += [(node.lineno, n) for n in names
+                  if n.split(".")[0] in _BLOCKED]
+    return found
+
+
+@pytest.mark.parametrize("case", ["ast", *_NO_JAX_CASES])
+def test_port_imports_without_jax(case, tmp_path):
+    """The port stands without jax and the JAX package: no module of it and
+    no line of chip_smoke.py imports either (by its syntax tree, imports
+    inside functions included); every module imports, and the inpaint and
+    evaluate entry points run on the CPU, with both unimportable."""
+    if case == "ast":
+        files = _port_sources()
+        assert len(files) >= 30
+        bad = {os.path.relpath(p, ROOT): hits for p in files
+               if (hits := _blocked_imports(p))}
+        assert not bad, bad
+        # the walk sees imports nested in functions
+        probe = tmp_path / "probe.py"
+        probe.write_text("def f():\n    from e2fgvi_tpu.data import video\n"
+                         "    import importlib\n"
+                         "    importlib.import_module('jax.numpy')\n")
+        assert [n for _, n in _blocked_imports(str(probe))] == [
+            "e2fgvi_tpu.data", "jax.numpy"]
+        return
+    code = ("import sys, torch\ntorch.set_num_threads(2)\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in _BLOCKED)
+            + f"TMP = {str(tmp_path)!r}\n" + _NO_JAX_CASES[case]
+            + "bad = [m for m, v in sys.modules.items() if v is not None "
+            f"and m.split('.')[0] in {_BLOCKED!r}]\n"
+            "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = int(proc.stdout.strip().splitlines()[-1])
+    assert n >= (15 if case == "modules" else 1)
 
 
 def test_cuda_device_raises_without_cuda(model):

@@ -85,7 +85,7 @@ def test_hq_window_stage_matches_jax(reference_sd, model):
     S = 141 deduplicated keys. B=2 end-padded windows (L=3 locals + 1 ref,
     T_pad 4); the first has 2 real locals and a padding frame."""
     params = convert_generator(reference_sd, "hq")
-    _, _, s = tfocal._window_tables(20, 72, 5, 9, 2, 4, 4, 8,
+    _, _, s = tfocal._window_tables(20, 72, 5, 9, 2, 4, 4, 8, 4,
                                     torch.device("cpu"))
     assert s == 141
     rng = np.random.default_rng(3)
