@@ -5,11 +5,16 @@
 
 Phases, one line each (any failed check raises and exits nonzero):
   1. device   CUDA with compute capability 9.0; nvidia-smi name, power limit
-  2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc; the bf16
-              K3's SASS must hold HGMMA (wgmma) and UTMALDG (TMA loads)
+  2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc; the SASS
+              of the bf16 K3 and of the bf16 K1 (one fused kernel) must
+              hold HGMMA (wgmma) and UTMALDG (TMA loads)
   3. kernels  K1 deform_im2col, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
+              K1 also with gemm_ms (cuBLAS on a random M x 2304 im2col
+              matrix, the contraction's own time), im2col_ms_f32 (the
+              float32 sampler alone) and the peak device memory of one
+              call;
               the float32 K3 (3xTF32 on tensor cores) also within max
               |delta| 1e-5 of its plain version, which one TF32 pass
               misses; K3 also at B=1 with only the first frame valid.
@@ -119,24 +124,35 @@ def log(msg):
     print(msg, flush=True)
 
 
-def sass_counts(lib, kernel, opcodes):
-    """How many SASS instructions of each opcode the functions of the
-    library `lib` whose names hold `kernel` have (cuobjdump -sass)."""
+def sass_histograms(lib, kernels):
+    """{kernel: Counter of SASS opcodes with their modifiers} of the
+    functions of the library `lib` whose names hold each of `kernels`
+    (cuobjdump -sass)."""
     import re
     import shutil
+    from collections import Counter
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts = dict.fromkeys(opcodes, 0)
-    pats = {op: re.compile(rf"\b{op}\b") for op in opcodes}
-    inside = False
+    # "/*0a40*/  @!P0 HGMMA.64x128x16.F32.BF16 ..." -> HGMMA.64x128x16...
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                    r"([A-Z][A-Za-z0-9_.]*)")
+    hist, cur = {k: Counter() for k in kernels}, None
     for line in text.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside:
-            for op, pat in pats.items():
-                counts[op] += bool(pat.search(line))
-    return counts
+            cur = next((k for k in kernels if k in line), None)
+        elif cur is not None and (m := op.search(line)):
+            hist[cur][m.group(1)] += 1
+    return hist
+
+
+def sass_counts(lib, kernel, opcodes):
+    """How many SASS instructions of each opcode (any modifiers) the
+    functions of the library `lib` whose names hold `kernel` have."""
+    hist = sass_histograms(lib, [kernel])[kernel]
+    return {op: sum(n for full, n in hist.items()
+                    if full == op or full.startswith(op + "."))
+            for op in opcodes}
 
 
 def phase_end(name, t0):
@@ -265,20 +281,41 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     return res
 
 
+def k1k2_inputs(randn, b, h, w):
+    """K1's and K2's float32 inputs on b quarter-res maps of h x w: the
+    flows, K1's (x, head, weight, bias) and K2's 2b-map feature pair.
+    Random heads (std 1): offsets differ per group and tap; some flows push
+    samples far outside the image."""
+    flow1, flow2 = randn(b, h, w, 2, std=3.0), randn(b, h, w, 2, std=3.0)
+    flow1[:, :4, :, 1] -= 40.0
+    flow2[:, :, -6:, 0] += 70.0
+    k1_base = (randn(b, h, w, 256), randn(b, h, w, 432),
+               randn(128, 256, 3, 3, std=0.02), randn(128, std=0.1))
+    return flow1, flow2, k1_base, randn(2 * b, h, w, 128)
+
+
+def k2_library(x, flow):
+    """F.grid_sample on K2's channels-last map, the flow turned into its
+    normalized grid beforehand: a callable to time."""
+    import torch
+    _, h, w, _ = x.shape
+    gy = torch.arange(h, device=x.device, dtype=torch.float32)[:, None]
+    gx = torch.arange(w, device=x.device, dtype=torch.float32)
+    grid = torch.stack([2 * (gx + flow[..., 0]) / (w - 1) - 1,
+                        2 * (gy + flow[..., 1]) / (h - 1) - 1], -1)
+    xn = x.permute(0, 3, 1, 2)
+    return lambda: torch.nn.functional.grid_sample(
+        xn, grid.to(x.dtype), mode="bilinear", padding_mode="zeros",
+        align_corners=True)
+
+
 def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16")):
     """K1 and K2 against their plain versions on b quarter-res maps of
     h x w (K2's flow composition in float32 only)."""
     import torch
     from e2fgvi_tpu_torch.kernels import deform
     randn = _randn_fn(dev)
-
-    # random heads (std 1): offsets differ per group and tap; some flows
-    # push samples far outside the image
-    flow1, flow2 = randn(b, h, w, 2, std=3.0), randn(b, h, w, 2, std=3.0)
-    flow1[:, :4, :, 1] -= 40.0
-    flow2[:, :, -6:, 0] += 70.0
-    k1_base = (randn(b, h, w, 256), randn(b, h, w, 432),
-               randn(128, 256, 3, 3, std=0.02), randn(128, std=0.1))
+    flow1, flow2, k1_base, xfeat = k1k2_inputs(randn, b, h, w)
 
     def k1_inputs(dt):
         x, head, wt, bias = (v.to(dt) for v in k1_base)
@@ -298,24 +335,13 @@ def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16")):
         "deform_im2col", deform.modulated_deform_conv2d_head,
         deform.deform_conv_head_plain, k1_inputs, timed, dtypes,
         bound_fn=k1_bound)
+    if timed:
+        res["deform_im2col"].update(k1_gemm_and_peak(k1_inputs, dtypes,
+                                                     b * h * w))
 
     # K2 at its two serving shapes: the pair of 128-channel feature warps
     # (2B maps) and the 2-channel flow composition (B maps, float32 only)
     wflow = torch.cat([flow1, flow2], 0)
-    xfeat = randn(2 * b, h, w, 128)
-
-    def k2_library(x, flow):
-        # F.grid_sample on the channels-last map, the flow turned into its
-        # normalized grid beforehand
-        gy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
-        gx = torch.arange(w, device=dev, dtype=torch.float32)
-        grid = torch.stack([2 * (gx + flow[..., 0]) / (w - 1) - 1,
-                            2 * (gy + flow[..., 1]) / (h - 1) - 1], -1)
-        xn = x.permute(0, 3, 1, 2)
-        return lambda: torch.nn.functional.grid_sample(
-            xn, grid.to(x.dtype), mode="bilinear", padding_mode="zeros",
-            align_corners=True)
-
     res["flow_warp"] = compare(
         "flow_warp", deform.flow_warp, deform.flow_warp_plain,
         lambda dt: (xfeat.to(dt), wflow), timed, dtypes,
@@ -334,6 +360,38 @@ def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16")):
     torch.testing.assert_close(deform.flow_warp(fimg, flow2),
                                deform.flow_warp_plain(fimg, flow2),
                                rtol=1e-5, atol=1e-4 * max(1.0, w / W))
+    return res
+
+
+def k1_gemm_and_peak(k1_inputs, dtypes, m):
+    """gemm_ms: cuBLAS col @ w_r on a random M x 2304 im2col matrix, the
+    contraction's own time (what the float32 K1 runs after its sampler);
+    im2col_ms: the float32 sampler alone (deform_im2col); peak_mib: the
+    peak device memory of one K1 call above what was allocated before it.
+    Suffixed _f32 as compare() suffixes."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import deform
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    res = {}
+    for dt in dtypes:
+        sfx = "_f32" if dt == "float32" and "bfloat16" in dtypes else ""
+        x, head, f1, f2, wt, bias = k1_inputs(getattr(torch, dt))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            deform.modulated_deform_conv2d_head(x, head, f1, f2, wt, bias)
+        torch.cuda.synchronize()
+        res["peak_mib" + sfx] = (torch.cuda.max_memory_allocated()
+                                 - before) / 2**20
+        kdim = wt[0].numel()
+        col = torch.randn((m, kdim), device=x.device).to(x.dtype)
+        w_r = torch.randn((kdim, wt.shape[0]), device=x.device).to(x.dtype)
+        res["gemm_ms" + sfx] = cuda_ms(lambda: col @ w_r)
+        del col
+        if dt == "float32":
+            res["im2col_ms" + sfx] = cuda_ms(
+                lambda: deform.deform_im2col(x, head, f1, f2))
     return res
 
 
@@ -882,6 +940,13 @@ def main():
     log(f"bf16 K3 SASS opcodes: {json.dumps(ops)}")
     if not (ops["HGMMA"] and ops["UTMALDG"]):
         raise AssertionError(f"bf16 K3 is not on wgmma + TMA: {ops}")
+    # the bf16 K1: sampler and wgmma contraction in one kernel, the weight
+    # by TMA
+    ops = sass_counts(lib_path, "deform_conv_wgmma_kernel",
+                      ("HGMMA", "UTMALDG", "HMMA"))
+    log(f"bf16 K1 SASS opcodes: {json.dumps(ops)}")
+    if not (ops["HGMMA"] and ops["UTMALDG"]):
+        raise AssertionError(f"bf16 K1 is not on wgmma + TMA: {ops}")
     t0 = phase_end("build", t0)
 
     # 3. kernels against their plain versions
@@ -987,11 +1052,13 @@ def main():
         for name, n in c.items():
             counts[name] += n
     kernels = []
+    k1_keys = ("gemm_ms", "gemm_ms_f32", "im2col_ms", "im2col_ms_f32",
+               "peak_mib", "peak_mib_f32")
     extra = ("ms_f32", "plain_ms_f32", "bound_ms_f32", "library_ms_f32",
-             "bf16_rel_err")
+             "bf16_rel_err", *k1_keys)
     hq_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_f32",
                "plain_ms_f32", "bound_ms_f32", "library_ms_f32",
-               "max_abs_err", "bf16_rel_err", f"b{B}")
+               "max_abs_err", "bf16_rel_err", f"b{B}", *k1_keys)
     for name, (src, replaces) in REPLACES.items():
         r = kres[name]
         entry = {"name": name, "route": "cuda", "source": src,

@@ -52,9 +52,40 @@ def build_parser():
     p.add_argument("--random_weights", action="store_true",
                    help="smoke-test with seeded random weights")
     p.add_argument("--no_show", action="store_true",
-                   help="accepted for the JAX CLI's flag set; this CLI "
-                   "opens no result viewer")
+                   help="skip the side-by-side result viewer")
     return p
+
+
+def show_results(frames_pil, comp):
+    """Side-by-side original/result animation (reference test.py:198-220;
+    e2fgvi_tpu/cli/inpaint.py:51-78).
+
+    Returns the animation, or None without matplotlib. No-op in headless
+    environments (Agg backend's plt.show does nothing)."""
+    try:
+        import matplotlib.pyplot as plt
+        from matplotlib import animation
+    except ImportError:
+        return None
+    fig = plt.figure("Let us enjoy the result")
+    ax1 = fig.add_subplot(1, 2, 1)
+    ax1.axis("off")
+    ax1.set_title("Original Video")
+    ax2 = fig.add_subplot(1, 2, 2)
+    ax2.axis("off")
+    ax2.set_title("Our Result")
+    imdata1 = ax1.imshow(frames_pil[0])
+    imdata2 = ax2.imshow(np.asarray(comp[0], np.uint8))
+
+    def update(idx):
+        imdata1.set_data(frames_pil[idx])
+        imdata2.set_data(np.asarray(comp[idx], np.uint8))
+
+    fig.tight_layout()
+    anim = animation.FuncAnimation(fig, update, frames=len(frames_pil),
+                                   interval=50)
+    plt.show()
+    return anim
 
 
 def frame_size(args):
@@ -123,6 +154,8 @@ def main(argv=None):
     out_path = write_video(os.path.join(args.out, base), comp,
                            fps=args.savefps)
     print(f"Saved: {out_path}")
+    if not args.no_show:
+        show_results(frames_pil, comp)
     return out_path
 
 

@@ -1,15 +1,28 @@
-"""K1 (head-fused DCNv2 sampler) and K2 (flow warp): wrappers and plain forms.
+"""K1 (head-fused DCNv2) and K2 (flow warp): wrappers and plain forms.
 
 Counterpart of e2fgvi_tpu/kernels/dcn_band.py (modulated_deform_conv2d_
 banded_head and flow_warp_banded). The CUDA kernels are in csrc/deform.cu.
 The TPU kernel's band contract is not ported: the CUDA sampler gathers at
 any offset exactly.
 
-Each wrapper takes its plain PyTorch version for tensors on the CPU, and
-only then. For CUDA tensors it launches its kernel or raises. Kernels are
-forward-only: an input that requires grad raises. `LAUNCHES` counts the
-kernel launches of each wrapper.
+K1 in bfloat16 is one kernel, sampler and contraction together
+(deform_conv_fused, wgmma); in float32 the sampler writes an im2col matrix
+(deform_im2col) that one cuBLAS GEMM contracts. Each wrapper takes its
+plain PyTorch version for tensors on the CPU, and only then. For CUDA
+tensors it launches its kernel or raises. Kernels are forward-only: an
+input that requires grad raises. `LAUNCHES` counts the kernel launches of
+each wrapper; "deform_im2col" counts K1 in both dtypes.
+
+K1's weight and bias, reordered for its contraction (conv_operands), are
+made once by a caller that runs one weight many times (models/feat_prop.py)
+and passed in as `operands`. Misaligned data: K2's and the float32 K1
+sampler's loads are as wide as their x's alignment allows (the same kernel
+at a narrower load width); any other input the kernels read in vector
+loads (the flows, the fused K1's x and head) is copied to an aligned
+tensor where it is not aligned.
 """
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +33,9 @@ from e2fgvi_tpu_torch.ops.warp import grid_sample_bilinear
 LAUNCHES = {"deform_im2col": 0, "flow_warp": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the fused bf16 K1's contract: 16 channels a group (one k16 wgmma step per
+# (group, tap)), 128 output channels (the wgmma's n), whole 64-wide K chunks
+FUSED_CG, FUSED_COUT, FUSED_CHUNK = 16, 128, 64
 
 
 def _channel_chunk(c: int, widest: int) -> int:
@@ -27,6 +43,21 @@ def _channel_chunk(c: int, widest: int) -> int:
         if nc <= widest and c % nc == 0:
             return nc
     return 1
+
+
+def _aligned(t, nbytes: int):
+    """t, or an aligned copy of it where its data is not nbytes-aligned (a
+    view into a larger tensor); the allocator aligns every new tensor."""
+    return t.clone() if t.data_ptr() % nbytes else t
+
+
+def _load_width(nc: int, esize: int, addr: int) -> int:
+    """Elements per load for a thread's nc channels: the widest power of
+    two up to nc and 16 bytes at which the data at `addr` is aligned."""
+    vec = min(nc, 16 // esize)
+    while addr % (vec * esize):
+        vec //= 2
+    return vec
 
 
 def check_cuda_inputs(name, *tensors):
@@ -72,15 +103,10 @@ def offsets_from_head(head, flow_1, flow_2, max_residue=10.0, k=9):
     return offsets, mask
 
 
-def modulated_deform_conv2d(x, offset, mask, weight, bias=None, padding=1):
-    """DCNv2 (stride 1, dilation 1, groups 1) as one F.grid_sample per tap
-    (the form of tests/mmcv_shim.py), computed in float32.
-
-    x: (N, H, W, Cin); offset: (N, Ho, Wo, G, K, 2) (dy, dx) pixels;
-    mask: (N, Ho, Wo, G, K); weight: (Cout, Cin, kh, kw).
-    Returns (N, Ho, Wo, Cout) in x's dtype."""
+def _sample_columns(x, offset, mask, kw, padding):
+    """The masked bilinear samples of DCNv2 in float32, one F.grid_sample
+    per tap: (N, G, K, Ho, Wo, CG)."""
     n, h, w, cin = x.shape
-    cout, _, kh, kw = weight.shape
     _, ho, wo, g, k, _ = offset.shape
     cg = cin // g
     dev = x.device
@@ -102,12 +128,72 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, padding=1):
         samp = samp.reshape(n, g, ho, wo, cg) \
             * m[..., t].permute(0, 3, 1, 2)[..., None]
         cols.append(samp)
-    cols = torch.stack(cols, 2)                          # (N, G, K, Ho, Wo, CG)
-    w4 = weight.float().reshape(cout, g, cg, k)
+    return torch.stack(cols, 2)
+
+
+def modulated_deform_conv2d(x, offset, mask, weight, bias=None, padding=1):
+    """DCNv2 (stride 1, dilation 1, groups 1) as one F.grid_sample per tap
+    (the form of tests/mmcv_shim.py), computed in float32.
+
+    x: (N, H, W, Cin); offset: (N, Ho, Wo, G, K, 2) (dy, dx) pixels;
+    mask: (N, Ho, Wo, G, K); weight: (Cout, Cin, kh, kw).
+    Returns (N, Ho, Wo, Cout) in x's dtype."""
+    cout, cin, _, kw = weight.shape
+    _, _, _, g, k, _ = offset.shape
+    cols = _sample_columns(x, offset, mask, kw, padding)
+    w4 = weight.float().reshape(cout, g, cin // g, k)
     out = torch.einsum("ngkyxc,ogck->nyxo", cols, w4)
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+def deform_columns_plain(x, head, flow_1, flow_2, kh=3, kw=3, padding=1,
+                         max_residue=10.0):
+    """Plain version of deform_im2col: K1's im2col matrix in float32,
+    (N*Ho*Wo, G*K*CG), row n*P + p, column (g*K + k)*CG + c."""
+    offsets, mask = offsets_from_head(head, flow_1, flow_2, max_residue,
+                                      kh * kw)
+    cols = _sample_columns(x, offsets, mask, kw, padding)
+    n, g, k, ho, wo, cg = cols.shape
+    return cols.permute(0, 3, 4, 1, 2, 5).reshape(n * ho * wo, g * k * cg)
+
+
+def fused_weight(weight, dtype=None, groups=None):
+    """The weight (Cout, Cin, kh, kw) as the fused K1's B operand: (Cout,
+    G*K*CG), K-major, column (g*K + k)*CG + c, in `dtype` (default the
+    weight's); G defaults to Cin / 16, the fused kernel's. The transpose of
+    the im2col GEMM's (g, k, cg) x Cout."""
+    cout, cin, kh, kw = weight.shape
+    g = cin // FUSED_CG if groups is None else groups
+    w = weight if dtype is None else weight.to(dtype)
+    w = w.reshape(cout, g, cin // g, kh * kw).permute(0, 1, 3, 2)
+    return w.reshape(cout, cin * kh * kw).contiguous()
+
+
+class ConvOperands(NamedTuple):
+    """K1's weight and bias as the CUDA path contracts them: in bfloat16
+    the fused kernel's B operand (Cout, G*K*CG), K-major (fused_weight),
+    and the bias rounded to bfloat16, held in float32 (zeros where there is
+    none); in float32 the GEMM's (G*K*CG, Cout) and the bias or None."""
+    weight: torch.Tensor
+    bias: torch.Tensor | None
+
+
+def conv_operands(weight, bias, dtype, groups=None) -> ConvOperands:
+    """K1's weight (Cout, Cin, kh, kw) and bias (Cout,) or None, reordered
+    for inputs of `dtype` and G `groups` (default Cin / 16, the fused
+    kernel's): made once for every call that uses one weight."""
+    weight = weight.detach()
+    if dtype == torch.bfloat16:
+        if bias is None:
+            b32 = torch.zeros(weight.shape[0], dtype=torch.float32,
+                              device=weight.device)
+        else:
+            b32 = bias.detach().to(torch.bfloat16).float().contiguous()
+        return ConvOperands(fused_weight(weight, torch.bfloat16), b32)
+    return ConvOperands(fused_weight(weight, dtype, groups).t().contiguous(),
+                        None if bias is None else bias.detach().to(dtype))
 
 
 def deform_conv_head_plain(x, head, flow_1, flow_2, weight, bias=None,
@@ -122,70 +208,141 @@ def deform_conv_head_plain(x, head, flow_1, flow_2, weight, bias=None,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def deform_im2col(x, head, flow_1, flow_2, kh=3, kw=3, padding=1,
-                  max_residue=10.0):
-    """Launch K1: the offset/mask prelude and the bilinear sampling.
-
-    x: (N, H, W, Cin) CUDA, float32 or bfloat16; head: (N, Ho, Wo, 3*K*G)
-    in x's dtype; flows (N, Ho, Wo, 2) float32. Returns the im2col matrix
-    (N*Ho*Wo, G*K*CG) in x's dtype, row n*P + p, column (g*K + k)*CG + c."""
-    x, head = x.contiguous(), head.contiguous()
-    flow_1 = flow_1.float().contiguous()
-    flow_2 = flow_2.float().contiguous()
-    check_cuda_inputs("deform_im2col", x, head, flow_1, flow_2)
-    if x.dtype not in _DTYPES or head.dtype != x.dtype:
-        raise ValueError(f"deform_im2col: x {x.dtype} / head {head.dtype} "
-                         "must both be float32 or bfloat16")
+def _conv_geometry(name, x, head, flow_1, flow_2, kh, kw, padding):
+    """Check K1's inputs against each other; returns (n, h, w, cin, ho, wo,
+    g, k)."""
     n, h, w, cin = x.shape
     k = kh * kw
     _, ho, wo, ch = head.shape
     g = ch // (3 * k)
     if ch != 3 * k * g or g == 0 or cin % g:
-        raise ValueError(f"deform_im2col: head channels {ch} do not fit "
-                         f"{k} taps and Cin={cin}")
+        raise ValueError(f"{name}: head channels {ch} do not fit {k} taps "
+                         f"and Cin={cin}")
     if ho != h + 2 * padding - kh + 1 or wo != w + 2 * padding - kw + 1:
-        raise ValueError("deform_im2col: head size does not match the conv")
+        raise ValueError(f"{name}: head size does not match the conv")
     if flow_1.shape != (n, ho, wo, 2) or flow_2.shape != (n, ho, wo, 2):
-        raise ValueError("deform_im2col: flows must be (N, Ho, Wo, 2)")
+        raise ValueError(f"{name}: flows must be (N, Ho, Wo, 2)")
+    return n, h, w, cin, ho, wo, g, k
+
+
+def deform_im2col(x, head, flow_1, flow_2, kh=3, kw=3, padding=1,
+                  max_residue=10.0):
+    """Launch the float32 K1 sampler: the offset/mask prelude and the
+    bilinear sampling.
+
+    x: (N, H, W, Cin) CUDA float32; head: (N, Ho, Wo, 3*K*G) float32;
+    flows (N, Ho, Wo, 2) float32. Returns the im2col matrix (N*Ho*Wo,
+    G*K*CG), row n*P + p, column (g*K + k)*CG + c (deform_columns_plain).
+    bfloat16 K1 is deform_conv_fused: it keeps no im2col matrix."""
+    x, head = x.contiguous(), head.contiguous()
+    flow_1 = flow_1.float().contiguous()
+    flow_2 = flow_2.float().contiguous()
+    check_cuda_inputs("deform_im2col", x, head, flow_1, flow_2)
+    if x.dtype != torch.float32 or head.dtype != torch.float32:
+        raise ValueError(f"deform_im2col: x {x.dtype} / head {head.dtype} "
+                         "must be float32; bfloat16 K1 is deform_conv_fused")
+    n, h, w, cin, ho, wo, g, k = _conv_geometry(
+        "deform_im2col", x, head, flow_1, flow_2, kh, kw, padding)
     cg = cin // g
+    nc = _channel_chunk(cg, 16)
+    xp = x.data_ptr()
     col = torch.empty((n * ho * wo, g * k * cg), dtype=x.dtype,
                       device=x.device)
     err = build.library().e2fgvi_deform_im2col(
-        _DTYPES[x.dtype], _channel_chunk(cg, 16), x.data_ptr(),
-        head.data_ptr(), flow_1.data_ptr(), flow_2.data_ptr(),
-        col.data_ptr(), n, h, w, cin, ho, wo, g, k, kw, padding,
-        float(max_residue), *build.stream_args(x))
+        nc, _load_width(nc, 4, xp), xp, head.data_ptr(),
+        flow_1.data_ptr(), flow_2.data_ptr(), col.data_ptr(), n, h, w, cin,
+        ho, wo, g, k, kw, padding, float(max_residue),
+        *build.stream_args(x))
     build.check(err, "deform_im2col")
     LAUNCHES["deform_im2col"] += 1
     return col
 
 
+def check_fused_shapes(x, head, weight):
+    """Raise unless the fused bf16 K1 takes these shapes: Cin = 16 G (16
+    channels a group, one k16 wgmma step per (group, tap)), Cout = 128 (the
+    wgmma's n) and G*kh*kw a multiple of 4 (whole 64-wide K chunks)."""
+    cout, cin, kh, kw = weight.shape
+    k = kh * kw
+    g = head.shape[-1] // (3 * k)
+    if x.shape[-1] != cin:
+        raise ValueError(f"deform_conv_fused: x has {x.shape[-1]} channels, "
+                         f"the weight {cin}")
+    if g == 0 or cin != FUSED_CG * g:
+        raise ValueError(f"deform_conv_fused takes Cin = {FUSED_CG} * G "
+                         f"(CG == {FUSED_CG}); got Cin={cin}, G={g}")
+    if cout != FUSED_COUT:
+        raise ValueError(f"deform_conv_fused takes Cout == {FUSED_COUT}; "
+                         f"got {cout}")
+    if (g * k * FUSED_CG) % FUSED_CHUNK:
+        raise ValueError(f"deform_conv_fused takes G*kh*kw a multiple of 4 "
+                         f"(whole {FUSED_CHUNK}-wide K chunks); got "
+                         f"G={g}, {kh}x{kw} taps")
+
+
+def deform_conv_fused(x, head, flow_1, flow_2, weight, bias=None,
+                      max_residue=10.0, padding=1, operands=None):
+    """Launch the bfloat16 K1: sampler and contraction in one kernel.
+
+    x: (N, H, W, Cin) CUDA bfloat16; head: (N, Ho, Wo, 3*K*G) bfloat16;
+    flows (N, Ho, Wo, 2) float32; weight (128, Cin, kh, kw); bias (128,) or
+    None; operands: conv_operands(weight, bias, torch.bfloat16), made here
+    when None. Returns (N, Ho, Wo, 128) bfloat16. Shapes outside
+    check_fused_shapes' contract raise."""
+    x, head = _aligned(x.contiguous(), 16), _aligned(head.contiguous(), 8)
+    flow_1 = _aligned(flow_1.float().contiguous(), 8)
+    flow_2 = _aligned(flow_2.float().contiguous(), 8)
+    check_cuda_inputs("deform_conv_fused", x, head, flow_1, flow_2)
+    if x.dtype != torch.bfloat16 or head.dtype != torch.bfloat16:
+        raise ValueError(f"deform_conv_fused: x {x.dtype} / head "
+                         f"{head.dtype} must be bfloat16")
+    cout, _, kh, kw = weight.shape
+    n, h, w, cin, ho, wo, g, k = _conv_geometry(
+        "deform_conv_fused", x, head, flow_1, flow_2, kh, kw, padding)
+    check_fused_shapes(x, head, weight)
+    if operands is None:
+        operands = conv_operands(weight, bias, torch.bfloat16)
+    wk, b32 = operands
+    if wk.device != x.device or b32.device != x.device:
+        raise ValueError("deform_conv_fused: the weight and bias must be on "
+                         f"x's device {x.device}")
+    out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16,
+                      device=x.device)
+    err = build.library().e2fgvi_deform_conv_fused(
+        x.data_ptr(), head.data_ptr(), flow_1.data_ptr(), flow_2.data_ptr(),
+        wk.data_ptr(), b32.data_ptr(), out.data_ptr(), n, h, w, cin, ho, wo,
+        g, k, kw, padding, float(max_residue), *build.stream_args(x))
+    build.check(err, "deform_conv_fused")
+    LAUNCHES["deform_im2col"] += 1
+    return out
+
+
 def modulated_deform_conv2d_head(x, head, flow_1, flow_2, weight, bias=None,
-                                 max_residue=10.0, padding=1):
+                                 max_residue=10.0, padding=1, operands=None):
     """Head-fused DCNv2 (e2fgvi_tpu kernels/dcn_band.py:650).
 
     x: (N, H, W, Cin); head: (N, Ho, Wo, 3*K*G) raw offset-head output
     (offset channel (g*K + k)*2 + {dy, dx}, mask channel 2*K*G + g*K + k);
     flow_1/flow_2: (N, Ho, Wo, 2) (dx, dy); weight: (Cout, Cin, kh, kw).
-    Returns (N, Ho, Wo, Cout) in x's dtype.
+    Returns (N, Ho, Wo, Cout) in x's dtype. operands: conv_operands(weight,
+    bias, x.dtype), made here when None.
 
-    CPU tensors take the plain version. On CUDA, K1 writes the im2col
-    matrix and one GEMM applies the weight, reordered to (g, k, cg) x Cout;
-    the JAX package also contracts outside its kernel."""
+    CPU tensors take the plain version. On CUDA, bfloat16 runs the fused
+    kernel; float32 writes the im2col matrix and one GEMM applies the
+    weight, reordered to (g, k, cg) x Cout, as the JAX package also
+    contracts outside its kernel."""
     if x.device.type == "cpu":
         return deform_conv_head_plain(x, head, flow_1, flow_2, weight, bias,
                                       max_residue, padding)
-    cout, cin, kh, kw = weight.shape
-    k = kh * kw
-    g = head.shape[-1] // (3 * k)
+    if x.dtype == torch.bfloat16:
+        return deform_conv_fused(x, head, flow_1, flow_2, weight, bias,
+                                 max_residue, padding, operands)
+    cout, _, kh, kw = weight.shape
     col = deform_im2col(x, head, flow_1, flow_2, kh, kw, padding,
                         max_residue)
-    w_r = weight.to(x.dtype).reshape(cout, g, cin // g, k)
-    w_r = w_r.permute(1, 3, 2, 0).reshape(g * k * (cin // g), cout)
-    if bias is None:
-        out = col @ w_r
-    else:
-        out = torch.addmm(bias.to(x.dtype), col, w_r)
+    w_r, b = operands or conv_operands(weight, bias, x.dtype,
+                                       head.shape[-1] // (3 * kh * kw))
+    out = col @ w_r if b is None else torch.addmm(b, col, w_r)
     n = x.shape[0]
     return out.reshape(n, head.shape[1], head.shape[2], cout)
 
@@ -195,7 +352,9 @@ def flow_warp(x, flow):
     (e2fgvi_tpu kernels/dcn_band.py:434 and ops/warp.py:53).
 
     x: (N, H, W, C) float32 or bfloat16; flow: (N, H, W, 2) (dx, dy).
-    CPU tensors take ops.warp.flow_warp; CUDA tensors launch K2."""
+    CPU tensors take ops.warp.flow_warp; CUDA tensors launch K2, whose
+    threads take 16 bytes of channels each (fewer where C is not a multiple)
+    in loads as wide as x's alignment allows."""
     if x.device.type == "cpu":
         return flow_warp_plain(x, flow)
     x = x.contiguous()
@@ -207,9 +366,12 @@ def flow_warp(x, flow):
     if flow.shape != (n, h, w, 2):
         raise ValueError(f"flow_warp: flow {tuple(flow.shape)} does not "
                          f"match image {tuple(x.shape)}")
+    flow = _aligned(flow, 8)                # read as one float2 a pixel
     out = torch.empty_like(x)
+    esize, xp = x.element_size(), x.data_ptr()
+    nc = _channel_chunk(c, 16 // esize)
     err = build.library().e2fgvi_flow_warp(
-        _DTYPES[x.dtype], _channel_chunk(c, 8), x.data_ptr(),
+        _DTYPES[x.dtype], nc, _load_width(nc, esize, xp), xp,
         flow.data_ptr(), out.data_ptr(), n, h, w, c, *build.stream_args(x))
     build.check(err, "flow_warp")
     LAUNCHES["flow_warp"] += 1

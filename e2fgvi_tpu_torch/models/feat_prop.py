@@ -13,7 +13,7 @@ feat_prop_module.backbone.{backward_,forward_}, feat_prop_module.fusion.
 import torch
 import torch.nn as nn
 
-from e2fgvi_tpu_torch.kernels.deform import (flow_warp,
+from e2fgvi_tpu_torch.kernels.deform import (conv_operands, flow_warp,
                                              modulated_deform_conv2d_head)
 from e2fgvi_tpu_torch.ops.convs import conv2d, leaky_relu
 
@@ -28,6 +28,7 @@ class SecondOrderDeformableAlignment(nn.Module):
 
     def __init__(self, channel, deform_groups=DEFORM_GROUPS):
         super().__init__()
+        self.deform_groups = deform_groups
         self.weight = nn.Parameter(torch.zeros(channel, 2 * channel, 3, 3))
         self.bias = nn.Parameter(torch.zeros(channel))
         self.conv_offset = nn.Sequential(
@@ -40,9 +41,19 @@ class SecondOrderDeformableAlignment(nn.Module):
             nn.Conv2d(channel, 27 * deform_groups, 3, padding=1),
         )
 
-    def forward(self, x, cond, flow_1, flow_2):
+    def kernel_operands(self, x):
+        """The DCN weight and bias reordered for K1 on CUDA inputs like x
+        (kernels.deform.conv_operands), once for all of a pass's steps;
+        None on the CPU."""
+        if x.device.type == "cpu":
+            return None
+        return conv_operands(self.weight, self.bias, x.dtype,
+                             self.deform_groups)
+
+    def forward(self, x, cond, flow_1, flow_2, operands=None):
         """x: (N, H, W, 2C) = [first-order, second-order state];
-        cond: (N, H, W, 3C) = [warped n1, current, warped n2]."""
+        cond: (N, H, W, 3C) = [warped n1, current, warped n2];
+        operands: kernel_operands(x), made per call when None."""
         convs = [m for m in self.conv_offset if isinstance(m, nn.Conv2d)]
         feat = torch.cat([cond, flow_1.to(cond.dtype), flow_2.to(cond.dtype)],
                          dim=-1)
@@ -52,7 +63,7 @@ class SecondOrderDeformableAlignment(nn.Module):
                 feat = leaky_relu(feat, 0.1)
         return modulated_deform_conv2d_head(
             x, feat, flow_1, flow_2, self.weight, self.bias,
-            max_residue=MAX_RESIDUE_MAGNITUDE)
+            max_residue=MAX_RESIDUE_MAGNITUDE, operands=operands)
 
 
 class FeatPropModule(nn.Module):
@@ -98,6 +109,7 @@ def bidirectional_propagation(module, x, flows_backward_branch,
     feats = {}
     for direction in _DIRS:
         align = module.deform_align[f"{direction}_"]
+        operands = align.kernel_operands(x)
         if direction == "backward":
             spatial = x.flip(1)
             flows = flows_backward_branch
@@ -125,7 +137,7 @@ def bidirectional_propagation(module, x, flows_backward_branch,
                              torch.cat([flow_n1, flow_n2], 0))
             cond = torch.cat([both[:b], spatial[:, i], both[b:]], -1)
             stacked = torch.cat([prev1, feat_n2], -1)
-            aligned = align(stacked, cond, flow_n1, flow_n2)
+            aligned = align(stacked, cond, flow_n1, flow_n2, operands)
             if masked:
                 # first real step: drop the alignment of padding state
                 first = (first_real_step == i)[:, None, None, None]

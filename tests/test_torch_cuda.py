@@ -34,32 +34,100 @@ def _randn(gen, *shape, std=1.0):
     return torch.randn(shape, generator=gen, device="cuda") * std
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_deform_im2col_matches_plain(gen, dtype):
-    n, h, w, cin, g = 2, 9, 13, 64, 4
+def _k1_inputs(gen, dtype, n, h, w, cin, g):
     x = _randn(gen, n, h, w, cin).to(dtype)
     head = _randn(gen, n, h, w, 27 * g).to(dtype)
     f1, f2 = _randn(gen, n, h, w, 2, std=4), _randn(gen, n, h, w, 2, std=4)
-    wt = _randn(gen, 16, cin, 3, 3, std=0.05).to(dtype)
-    b = _randn(gen, 16).to(dtype)
+    f2[:, :, -3:, 0] += 60.0            # samples far outside the image
+    wt = _randn(gen, 128, cin, 3, 3, std=0.05).to(dtype)
+    b = _randn(gen, 128).to(dtype)
+    return x, head, f1, f2, wt, b
+
+
+def _check_k1(inputs, dtype):
+    x, head, f1, f2, wt, b = inputs
     before = deform.LAUNCHES["deform_im2col"]
     got = deform.modulated_deform_conv2d_head(x, head, f1, f2, wt, b)
     assert deform.LAUNCHES["deform_im2col"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape[:3] + (128,)
     want = deform.deform_conv_head_plain(x.float(), head.float(), f1, f2,
                                          wt.float(), b.float())
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     else:
+        assert torch.isfinite(got.float()).all()
         assert (got.float() - want).abs().max() / want.abs().max() < 2e-2
 
 
-@pytest.mark.parametrize("c", [2, 24, 128])
-def test_flow_warp_matches_plain(gen, c):
-    x = _randn(gen, 3, 11, 17, c)
+# (n, h, w): M = 234 pixels is no multiple of the fused bf16 kernel's
+# 128-row tile; M = 35 is under one tile
+@pytest.mark.parametrize("size", [(2, 9, 13), (1, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_im2col_matches_plain(gen, dtype, size):
+    _check_k1(_k1_inputs(gen, dtype, *size, cin=64, g=4), dtype)
+
+
+def test_deform_fused_serving_widths(gen):
+    """The bf16 kernel's serving instantiation (Cin 256, G 16, Cout 128:
+    36 K chunks) on a map of a few rows, 6 tiles with a ragged last."""
+    _check_k1(_k1_inputs(gen, torch.bfloat16, 2, 3, 108, cin=256, g=16),
+              torch.bfloat16)
+
+
+def test_deform_fused_refuses_other_shapes(gen):
+    x, head, f1, f2, wt, b = _k1_inputs(gen, torch.bfloat16, 1, 5, 7, 64, 4)
+    with pytest.raises(ValueError, match="Cout == 128"):
+        deform.modulated_deform_conv2d_head(x, head, f1, f2, wt[:16], b[:16])
+    x8 = _randn(gen, 1, 5, 7, 32).to(torch.bfloat16)      # CG 8
+    with pytest.raises(ValueError, match="CG == 16"):
+        deform.modulated_deform_conv2d_head(x8, head, f1, f2, wt[:, :32],
+                                            b)
+    with pytest.raises(ValueError, match="device"):
+        deform.modulated_deform_conv2d_head(x, head, f1, f2, wt.cpu(), b)
+
+
+def test_deform_fused_misaligned_and_operands(gen):
+    """A view of x that is not 16-byte aligned is copied to an aligned
+    tensor; operands made once (conv_operands) give the bits of operands
+    made per call."""
+    x, head, f1, f2, wt, b = _k1_inputs(gen, torch.bfloat16, 1, 5, 7, 64, 4)
+    want = deform.modulated_deform_conv2d_head(x, head, f1, f2, wt, b)
+    big = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    xm = big[1:].view(x.shape).copy_(x)
+    assert xm.data_ptr() % 16
+    assert torch.equal(
+        deform.modulated_deform_conv2d_head(xm, head, f1, f2, wt, b), want)
+    ops = deform.conv_operands(wt, b, torch.bfloat16)
+    assert torch.equal(deform.modulated_deform_conv2d_head(
+        x, head, f1, f2, wt, b, operands=ops), want)
+
+
+# (C, dtype, misaligned): a misaligned x is a view 1 element into a larger
+# tensor, so K2 takes the narrower loads of the same kernel, and must give
+# the bits of the aligned copy
+_WARP_CASES = {"c2": (2, torch.float32, False),
+               "c24": (24, torch.float32, False),
+               "c128": (128, torch.float32, False),
+               "c128_bf16": (128, torch.bfloat16, False),
+               "c128_misaligned": (128, torch.float32, True),
+               "c24_bf16_misaligned": (24, torch.bfloat16, True)}
+
+
+@pytest.mark.parametrize("case", list(_WARP_CASES))
+def test_flow_warp_matches_plain(gen, case):
+    c, dtype, misaligned = _WARP_CASES[case]
+    x = _randn(gen, 3, 11, 17, c).to(dtype)
     flow = _randn(gen, 3, 11, 17, 2, std=5)
-    torch.testing.assert_close(deform.flow_warp(x, flow),
-                               deform.flow_warp_plain(x, flow),
-                               rtol=1e-5, atol=1e-4)
+    if misaligned:
+        big = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+        xm = big[1:].view(x.shape).copy_(x)
+        assert xm.data_ptr() % 16
+        assert torch.equal(deform.flow_warp(xm, flow),
+                           deform.flow_warp(x, flow))
+    got = deform.flow_warp(x, flow)
+    assert got.dtype == dtype
+    _assert_close_to_plain(got, deform.flow_warp_plain(x.float(), flow),
+                           dtype, (1e-5, 1e-4), 2e-2)
 
 
 def _k3_inputs(gen, dtype, b, heads, nwin, nq, no, t, s):

@@ -215,7 +215,8 @@ _NO_JAX_CASES = {
         "out = inpaint.main(['-v', 'examples/mini', '-m', "
         "'examples/mini_mask', '-c', 'none', '--random_weights', "
         "'--model', 'e2fgvi_hq', '--set_size', '--width', '108', "
-        "'--height', '60', '--device', 'cpu', '--out', TMP])\n"
+        "'--height', '60', '--device', 'cpu', '--out', TMP, "
+        "'--no_show'])\n"
         "import os\n"
         "print(os.path.getsize(out))\n"),
     "evaluate": (

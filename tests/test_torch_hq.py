@@ -239,6 +239,7 @@ def test_inpaint_cli_hq_set_size(tmp_path, reference_sd):
         "-v", video, "-m", os.path.join(ROOT, "examples", "hqtest_mask"),
         "-c", str(ckpt), "--model", "e2fgvi_hq", "--set_size",
         "--width", "216", "--height", "120", "--device", "cpu",
-        "--max_batch", "2", "--out", str(tmp_path / "results")])
+        "--max_batch", "2", "--out", str(tmp_path / "results"),
+        "--no_show"])
     frames = readers.read_frames(out, None)
     assert len(frames) == 10 and frames[0].size == (216, 120)
