@@ -761,6 +761,27 @@ def run_evaluate(dev, tmp):
             "i3d_rel_err": i3d_err}, counts
 
 
+def e3_library(tab, idx):
+    """torch.gather on E3's table, the index widened to int64 beforehand: a
+    callable to time."""
+    import torch
+    flat = idx.reshape(-1, idx.shape[-1]).long()
+    return lambda: torch.gather(tab, 0, flat)
+
+
+def e4_library(tab, py, px, h, w):
+    """F.grid_sample on E4's table, the G lane groups as G images (lane j
+    is group j % G) and the positions as a normalized grid (align_corners),
+    made beforehand: a callable to time."""
+    import torch
+    g = py.shape[-1]
+    img = tab.reshape(h, w, -1, g).permute(3, 2, 0, 1)
+    grid = torch.stack([2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1], -1)
+    grid = grid.permute(2, 0, 1, 3).contiguous()
+    return lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
 def check_experiment_kernels(dev):
     """E1-E6 against their plain versions at the experiments' default
     shapes; E6 and E1 bit-equal to E5 base on the same bfloat16 source."""
@@ -818,36 +839,18 @@ def check_experiment_kernels(dev):
         raise AssertionError(f"packed samplers not bit-equal to E5: {exact}")
 
     tab, idx, gpy, gpx = eg.make_inputs(dev)        # E3/E4: 60x108, 9 taps
-
-    def gather_library(tab, idx):
-        # torch.gather, the index widened to int64 beforehand
-        flat = idx.reshape(-1, idx.shape[-1]).long()
-        return lambda: torch.gather(tab, 0, flat)
-
     res["row_gather"] = compare("row_gather", gather.row_gather,
                                 gather.row_gather_plain,
                                 lambda dt: (tab.to(dt), idx),
                                 bound_fn=lambda a, out: roofline(a, [out]),
-                                library_fn=gather_library)
-
-    def bilinear4_library(tab, py, px, h, w):
-        # F.grid_sample with the G lane groups as G images (lane j is group
-        # j % G) and the positions as a normalized grid (align_corners)
-        g = py.shape[-1]
-        img = tab.reshape(h, w, -1, g).permute(3, 2, 0, 1)
-        grid = torch.stack([2 * px / (w - 1) - 1, 2 * py / (h - 1) - 1], -1)
-        grid = grid.permute(2, 0, 1, 3).contiguous()
-        return lambda: torch.nn.functional.grid_sample(
-            img, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True)
-
+                                library_fn=e3_library)
     res["bilinear4_sample"] = compare(
         "bilinear4_sample", gather.bilinear4_sample,
         gather.bilinear4_sample_plain, lambda dt: (tab, gpy, gpx, H, W),
         dtypes=("float32",),
         bound_fn=lambda a, out: roofline(
             a[:3], [out], [(8 * out.numel(), PEAK_FLOPS["float32"])]),
-        library_fn=bilinear4_library)
+        library_fn=e4_library)
 
     block, x, pooled = ea.make_block(dev)           # E2: B 14, T 17
 

@@ -148,7 +148,7 @@ extern "C" int e2fgvi_band_attention(const void* qkv, const void* pqkv,
                                      float scale, int device, void* stream) {
   using e2fgvi::mma::bf16;
   if (hd != e2fgvi::mma::kHD) return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const int smem = e2fgvi::kBandSmemBase + S * (int)sizeof(int2);
   cudaError_t err = cudaFuncSetAttribute(

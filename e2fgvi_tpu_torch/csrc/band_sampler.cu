@@ -278,7 +278,7 @@ extern "C" int e2fgvi_band_sample(int src_dtype, int out_dtype,
                                   int band, int dy_lo, int device,
                                   void* stream) {
   using e2fgvi::kBFloat16;
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (src_dtype == kBFloat16 && out_dtype == kBFloat16) {
@@ -299,7 +299,7 @@ extern "C" int e2fgvi_band_sample_cbatch(int dtype, const void* src,
                                          int K, int CG, int HP, int WP,
                                          int band, int dy_lo, int device,
                                          void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == e2fgvi::kBFloat16) {
@@ -315,7 +315,7 @@ extern "C" int e2fgvi_band_sample_xpair(const void* psrc, const void* py,
                                         void* out, int NG, int K, int CG,
                                         int HP, int WP, int band, int dy_lo,
                                         int device, void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const long long total = (long long)NG * K * CG * HP * WP;
   if (total > 0) {
@@ -333,7 +333,7 @@ extern "C" int e2fgvi_band_sample_cpair(const void* psrc, const void* py,
                                         void* out, int NG, int K, int CGP,
                                         int HP, int WP, int band, int dy_lo,
                                         int device, void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   const long long total = (long long)NG * K * CGP * HP * WP;
   if (total > 0) {

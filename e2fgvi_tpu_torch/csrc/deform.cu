@@ -76,48 +76,11 @@ __device__ __forceinline__ Corners corners_of(int H, int W, int C, float py,
   return c;
 }
 
-// `BYTES` (4, 8 or 16) bytes at p, aligned to BYTES, as 32-bit words
-template <int BYTES>
-__device__ __forceinline__ void load_words(const void* p, unsigned* w) {
-  if constexpr (BYTES == 16) {
-    const uint4 v = __ldg(static_cast<const uint4*>(p));
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-  } else if constexpr (BYTES == 8) {
-    const uint2 v = __ldg(static_cast<const uint2*>(p));
-    w[0] = v.x, w[1] = v.y;
-  } else {
-    static_assert(BYTES == 4, "4, 8 or 16 bytes");
-    w[0] = __ldg(static_cast<const unsigned*>(p));
-  }
-}
-
-template <int BYTES>
-__device__ __forceinline__ void store_words(void* p, const unsigned* w) {
-  if constexpr (BYTES == 16) {
-    *static_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (BYTES == 8) {
-    *static_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  } else {
-    static_assert(BYTES == 4, "4, 8 or 16 bytes");
-    *static_cast<unsigned*>(p) = w[0];
-  }
-}
-
-// 32-bit words that one load of V elements of T fills (a lone bf16 takes
-// the low half of one)
-template <typename T, int V>
-__host__ __device__ constexpr int words_of() {
-  return V * (int)sizeof(T) >= 4 ? V * (int)sizeof(T) / 4 : 1;
-}
-
 // V elements at p (aligned to V * sizeof(T) bytes) by one load, raw
+// (load_words, common.cuh)
 template <typename T, int V>
 __device__ __forceinline__ void load_raw(const T* p, unsigned* w) {
-  if constexpr (V * (int)sizeof(T) == 2) {
-    w[0] = __bfloat16_as_ushort(*p);
-  } else {
-    load_words<V * (int)sizeof(T)>(p, w);
-  }
+  load_words<V * (int)sizeof(T)>(p, w);
 }
 
 // the raw words of load_raw in float32; a bf16 widens exactly as
@@ -720,7 +683,7 @@ extern "C" int e2fgvi_deform_im2col(int nc, int vec, const void* x,
                                     int G, int K, int kw, int pad,
                                     float max_residue, int device,
                                     void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nc) {
@@ -742,7 +705,7 @@ extern "C" int e2fgvi_deform_conv_fused(
     const void* wk, const void* bias, void* out, int N, int H, int W,
     int Cin, int Ho, int Wo, int G, int K, int kw, int pad,
     float max_residue, int device, void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   using e2fgvi::hopper::bf16;
   e2fgvi::fused::Params prm;
@@ -763,7 +726,7 @@ extern "C" int e2fgvi_deform_conv_fused(
 extern "C" int e2fgvi_flow_warp(int dtype, int nc, int vec, const void* x,
                                 const void* flow, void* out, int N, int H,
                                 int W, int C, int device, void* stream) {
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == e2fgvi::kBFloat16) {

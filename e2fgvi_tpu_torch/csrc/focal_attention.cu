@@ -667,7 +667,7 @@ extern "C" int e2fgvi_focal_attention(int dtype, const void* q,
                                       int ld, int hd, int device,
                                       void* stream) {
   if (hd != e2fgvi::kHD) return (int)cudaErrorInvalidValue;
-  const cudaError_t dev_err = cudaSetDevice(device);
+  const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == e2fgvi::kBFloat16) {

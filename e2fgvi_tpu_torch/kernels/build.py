@@ -38,8 +38,8 @@ _SIGNATURES = {
     "e2fgvi_band_sample_cbatch": [_I] + [_P] * 5 + [_I] * 8 + [_P],
     "e2fgvi_band_sample_xpair": [_P] * 5 + [_I] * 8 + [_P],
     "e2fgvi_band_sample_cpair": [_P] * 5 + [_I] * 8 + [_P],
-    "e2fgvi_row_gather": [_I] + [_P] * 3 + [_I] * 4 + [_P],
-    "e2fgvi_bilinear4_sample": [_P] * 4 + [_I] * 6 + [_P],
+    "e2fgvi_row_gather": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
+    "e2fgvi_bilinear4_sample": [_P] * 5 + [_I] * 6 + [_P],
     "e2fgvi_band_attention": [_P] * 5 + [_I] * 12 + [_F, _I, _P],
 }
 
@@ -119,9 +119,12 @@ def library() -> ctypes.CDLL:
 
 def stream_args(t) -> tuple[int, int]:
     """(device index, current stream handle) of a CUDA tensor's device:
-    the last two arguments of every entry point."""
+    the last two arguments of every entry point. The handle is read as
+    PyTorch's generated kernels read it, without building a
+    torch.cuda.Stream object a call."""
     import torch
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+    dev = t.get_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev)
 
 
 def check(err: int, name: str) -> None:

@@ -51,7 +51,7 @@ def _aligned(t, nbytes: int):
     return t.clone() if t.data_ptr() % nbytes else t
 
 
-def _load_width(nc: int, esize: int, addr: int) -> int:
+def load_width(nc: int, esize: int, addr: int) -> int:
     """Elements per load for a thread's nc channels: the widest power of
     two up to nc and 16 bytes at which the data at `addr` is aligned."""
     vec = min(nc, 16 // esize)
@@ -63,11 +63,12 @@ def _load_width(nc: int, esize: int, addr: int) -> int:
 def check_cuda_inputs(name, *tensors):
     """Raise unless every tensor is a CUDA tensor on one device, contiguous
     and free of autograd history (the kernels are forward-only)."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()                # -1 on the CPU
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{name}: all inputs must be on one CUDA "
-                             f"device, got {t.device} and {dev}")
+                             f"device, got {t.device} and "
+                             f"{tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.requires_grad:
@@ -249,7 +250,7 @@ def deform_im2col(x, head, flow_1, flow_2, kh=3, kw=3, padding=1,
     col = torch.empty((n * ho * wo, g * k * cg), dtype=x.dtype,
                       device=x.device)
     err = build.library().e2fgvi_deform_im2col(
-        nc, _load_width(nc, 4, xp), xp, head.data_ptr(),
+        nc, load_width(nc, 4, xp), xp, head.data_ptr(),
         flow_1.data_ptr(), flow_2.data_ptr(), col.data_ptr(), n, h, w, cin,
         ho, wo, g, k, kw, padding, float(max_residue),
         *build.stream_args(x))
@@ -355,7 +356,7 @@ def flow_warp(x, flow):
     CPU tensors take ops.warp.flow_warp; CUDA tensors launch K2, whose
     threads take 16 bytes of channels each (fewer where C is not a multiple)
     in loads as wide as x's alignment allows."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return flow_warp_plain(x, flow)
     x = x.contiguous()
     flow = flow.float().contiguous()
@@ -371,7 +372,7 @@ def flow_warp(x, flow):
     esize, xp = x.element_size(), x.data_ptr()
     nc = _channel_chunk(c, 16 // esize)
     err = build.library().e2fgvi_flow_warp(
-        _DTYPES[x.dtype], nc, _load_width(nc, esize, xp), xp,
+        _DTYPES[x.dtype], nc, load_width(nc, esize, xp), xp,
         flow.data_ptr(), out.data_ptr(), n, h, w, c, *build.stream_args(x))
     build.check(err, "flow_warp")
     LAUNCHES["flow_warp"] += 1

@@ -359,6 +359,143 @@ def test_row_gather_matches_plain(gen, dtype):
     assert torch.equal(got, gather.row_gather_plain(tab, idx))
 
 
+def _row_idx(gen, kind, t, p, c, rows):
+    """(t, p, c) int32 indices into `rows` table rows: one row for each
+    8-lane group (`shared`), one a lane (`per_lane`), or both in every row
+    (`mixed`)."""
+    def draw(*shape):
+        return torch.randint(0, rows, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+    shared = draw(t, p, (c + 7) // 8).repeat_interleave(8, -1)[..., :c]
+    if kind == "shared":
+        return shared.contiguous()
+    per_lane = draw(t, p, c)
+    if kind == "per_lane":
+        return per_lane
+    even = (torch.arange(c, device="cuda") // 8) % 2 == 0
+    return torch.where(even, shared, per_lane)
+
+
+def _check_row_gather(tab, idx, want=None):
+    before = gather.LAUNCHES["row_gather"]
+    got = gather.row_gather(tab, idx)
+    assert gather.LAUNCHES["row_gather"] == before + 1
+    assert got.dtype == tab.dtype and got.shape == idx.shape
+    if want is None:
+        want = gather.row_gather_plain(tab, idx)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["shared", "per_lane", "mixed"])
+def test_row_gather_experiment_shape(gen, kind, dtype):
+    """E3 at the experiment's (9, 6480, 128): the one-read path where a
+    group's 8 lanes share a row, the lane-by-lane one, and both in a row."""
+    tab = _randn(gen, 6480, 128).to(dtype)
+    _check_row_gather(tab, _row_idx(gen, kind, 9, 6480, 128, 6480))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_out_of_range_is_zero(gen, dtype):
+    p, c = 37, 32
+    tab = _randn(gen, p, c).to(dtype)
+    idx = _row_idx(gen, "shared", 3, 5, c, p)
+    idx[0, :, 3] = -1                       # one lane of a group
+    idx[1, :, 8:16] = p                     # a whole group
+    idx[2, ::2, -1] = 2 ** 31 - 1
+    inside = (idx >= 0) & (idx < p)
+    want = torch.where(inside, gather.row_gather_plain(
+        tab, torch.where(inside, idx, 0)), 0).to(dtype)
+    _check_row_gather(tab, idx, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["shared", "per_lane"])
+def test_row_gather_c20_and_misaligned_views(gen, kind, dtype):
+    """C = 20 (4 lanes a thread), and tab and idx as views 1 element into
+    larger tensors (narrower loads), each against the plain version."""
+    p, c = 37, 20
+    tab = _randn(gen, p, c).to(dtype)
+    idx = _row_idx(gen, kind, 3, 5, c, p)
+    _check_row_gather(tab, idx)
+    big = torch.empty(tab.numel() + 1, dtype=dtype, device="cuda")
+    tab_view = big[1:].view(tab.shape).copy_(tab)
+    bigi = torch.empty(idx.numel() + 1, dtype=torch.int32, device="cuda")
+    idx_view = bigi[1:].view(idx.shape).copy_(idx)
+    assert tab_view.data_ptr() % 16 and idx_view.data_ptr() % 16
+    tab128 = _randn(gen, p, 128).to(dtype)
+    idx128 = _row_idx(gen, kind, 3, 5, 128, p)
+    big = torch.empty(tab128.numel() + 1, dtype=dtype, device="cuda")
+    tab128_view = big[1:].view(tab128.shape).copy_(tab128)
+    for t, i in ((tab_view, idx), (tab, idx_view), (tab_view, idx_view),
+                 (tab128_view, idx128)):
+        _check_row_gather(t, i)
+
+
+def test_row_gather_wide_offsets(gen):
+    """A table of more than 2**31 elements (bfloat16, 4.3 GB) takes the
+    kernel's 64-bit offsets: rows near its end read right."""
+    c = 128
+    rows = 2 ** 31 // c + 64
+    tab = torch.empty((rows, c), dtype=torch.bfloat16, device="cuda")
+    tab[-64:] = _randn(gen, 64, c).to(torch.bfloat16)
+    for kind in ("shared", "per_lane"):
+        idx = _row_idx(gen, kind, 2, 7, c, 64) + (rows - 64)
+        _check_row_gather(tab, idx)
+    del tab
+    torch.cuda.empty_cache()
+
+
+# (h, w, C, G, rows a tap, misaligned tab): C/G = 8 takes 16-byte corner
+# loads, C/G = 3 scalar ones; 37 and 13 rows are no multiple of a block's
+_BILINEAR_CASES = {"cg8": (60, 108, 128, 16, 6480, False),
+                   "cg8_ragged": (7, 11, 64, 8, 37, False),
+                   "cg3": (7, 11, 24, 8, 13, False),
+                   "cg8_misaligned": (7, 11, 128, 16, 37, True),
+                   "cg3_misaligned": (7, 11, 24, 8, 13, True)}
+
+
+@pytest.mark.parametrize("case", list(_BILINEAR_CASES))
+def test_bilinear4_group_major_matches_plain(gen, case):
+    """E4 within 1e-6 of its plain version, positions past the map's edges
+    (clamped corners); and at whole-pixel positions, where each lane is one
+    table entry, equal to the table read through its group-major rewrite:
+    lane j of a row is tab[y*w + x, j] at group j % G's (y, x)."""
+    h, w, c, g, p, misaligned = _BILINEAR_CASES[case]
+    tab = _randn(gen, h * w, c)
+    py = torch.rand((2, p, g), generator=gen, device="cuda") * (h + 3) - 2
+    px = torch.rand((2, p, g), generator=gen, device="cuda") * (w + 3) - 2
+    if misaligned:
+        big = torch.empty(tab.numel() + 1, device="cuda")
+        tab = big[1:].view(tab.shape).copy_(tab)
+        assert tab.data_ptr() % 16
+    before = gather.LAUNCHES["bilinear4_sample"]
+    got = gather.bilinear4_sample(tab, py, px, h, w)
+    assert gather.LAUNCHES["bilinear4_sample"] == before + 1
+    torch.testing.assert_close(got, gather.bilinear4_sample_plain(
+        tab, py, px, h, w), rtol=1e-6, atol=1e-6)
+    assert torch.equal(gather.bilinear4_sample(tab, py, px, h, w), got)
+    iy = torch.randint(0, h, (2, p, g), generator=gen, device="cuda")
+    ix = torch.randint(0, w, (2, p, g), generator=gen, device="cuda")
+    whole = gather.bilinear4_sample(tab, iy.float(), ix.float(), h, w)
+    pix = (iy * w + ix).repeat(1, 1, c // g)        # lane j: group j % G
+    assert torch.equal(whole, tab[pix, torch.arange(c, device="cuda")])
+    tabg = gather.group_major_plain(tab, g)
+    assert torch.equal(tabg, tab.reshape(h * w, c // g, g).permute(2, 0, 1)
+                       .contiguous())
+
+
+def test_bilinear4_refuses_what_it_does_not_take(gen):
+    tab = _randn(gen, 6, 8)
+    pos = torch.zeros((1, 2, 4), device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        gather.bilinear4_sample(tab.bfloat16(), pos, pos, 2, 3)
+    with pytest.raises(ValueError, match="do not fit"):
+        gather.bilinear4_sample(tab, pos[..., :3], pos[..., :3], 2, 3)
+    with pytest.raises(ValueError, match="C <="):
+        gather.bilinear4_sample(_randn(gen, 6, 2048), pos, pos, 2, 3)
+
+
 def test_bilinear4_matches_plain(gen):
     h, w, c, g = 7, 11, 24, 8
     tab = _randn(gen, h * w, c)

@@ -241,14 +241,14 @@ def test_k2_load_width_follows_alignment():
     wide as x's address allows: a view 1 float in takes scalar loads, 2
     floats in 8-byte ones; the same rule for bf16."""
     base = torch.zeros(1024)
-    assert deform._load_width(4, 4, base.data_ptr()) == 4
-    assert deform._load_width(4, 4, base[1:].data_ptr()) == 1
-    assert deform._load_width(4, 4, base[2:].data_ptr()) == 2
-    assert deform._load_width(2, 4, base[2:].data_ptr()) == 2
+    assert deform.load_width(4, 4, base.data_ptr()) == 4
+    assert deform.load_width(4, 4, base[1:].data_ptr()) == 1
+    assert deform.load_width(4, 4, base[2:].data_ptr()) == 2
+    assert deform.load_width(2, 4, base[2:].data_ptr()) == 2
     b16 = torch.zeros(1024, dtype=torch.bfloat16)
-    assert deform._load_width(8, 2, b16.data_ptr()) == 8
-    assert deform._load_width(8, 2, b16[4:].data_ptr()) == 4
-    assert deform._load_width(8, 2, b16[1:].data_ptr()) == 1
+    assert deform.load_width(8, 2, b16.data_ptr()) == 8
+    assert deform.load_width(8, 2, b16[4:].data_ptr()) == 4
+    assert deform.load_width(8, 2, b16[1:].data_ptr()) == 1
     assert deform._channel_chunk(128, 4) == 4
     assert deform._channel_chunk(128, 8) == 8
     assert deform._channel_chunk(2, 4) == 2

@@ -1,28 +1,48 @@
 #!/usr/bin/env python3
-"""K1 and K2 of one tree of the port, timed apart, for A/B runs on one card.
+"""The kernels of one tree of the port, timed apart, for A/B runs on one
+card.
 
     python3 tools/deform_ab.py --root <tree> --tag <name> [--out <dir>]
+                               [--parts deform gather serve_f32]
     python3 tools/deform_ab.py --compare <dir>/<a>.pt <dir>/<b>.pt
+    python3 tools/deform_ab.py --summarize <tree>_<pair>.jsonl ...
 
 The first form imports e2fgvi_tpu_torch from <tree> (a checkout of any
 commit of the port; its kernels build into <tree>/build) and times it with
-that tree's utils.timing.cuda_ms, on chip_smoke.py's inputs
-(chip_smoke.k1k2_inputs) at base (60x108 maps) and 864x480 (120x216), B=14,
-in float32 and bfloat16:
+that tree's utils.timing.cuda_ms (one call between CUDA events after a
+sync, the wrapper's host time included). `--parts` picks what it runs:
 
-- K1 whole (modulated_deform_conv2d_head), with chip_smoke.k1_gemm_and_peak:
-  the contraction alone (cuBLAS on a random M x 2304 matrix), the float32
-  im2col kernel alone (bfloat16 too in a tree whose bf16 K1 still writes
-  an im2col matrix) and the peak device memory of one call;
-- K2 on the pair of 128-channel feature warps (2B maps) beside
-  F.grid_sample, and on the 2-channel flow composition (float32);
-- K3 at base B=14;
-- the SASS opcode histogram of the deform kernels and of the bf16 K3
-  (cuobjdump): load and store opcodes in full, the rest as a digest.
+- `deform` (default), on chip_smoke.py's inputs (chip_smoke.k1k2_inputs)
+  at base (60x108 maps) and 864x480 (120x216), B=14, in float32 and
+  bfloat16: K1 whole (modulated_deform_conv2d_head), with
+  chip_smoke.k1_gemm_and_peak: the contraction alone (cuBLAS on a random
+  M x 2304 matrix), the float32 im2col kernel alone (bfloat16 too in a
+  tree whose bf16 K1 still writes an im2col matrix) and the peak device
+  memory of one call; K2 on the pair of 128-channel feature warps (2B
+  maps) beside F.grid_sample, and on the 2-channel flow composition
+  (float32); K3 at base B=14;
+- `gather` (default), on experiments.exp_gather.make_inputs (9 taps of a
+  60x108 map, 128 lanes, 16 groups): E3 row_gather in float32 and
+  bfloat16 beside torch.gather (the index widened to int64 beforehand,
+  chip_smoke.e3_library) and E4 bilinear4_sample beside F.grid_sample
+  (chip_smoke.e4_library), each also split into host and device parts
+  (`split`), as is K2's base float32 pair; and the host microseconds a
+  call of the launch path's pieces (build.stream_args, check_cuda_inputs,
+  a one-row E3 call);
+- `serve_f32`: chip_smoke.serve in float32 at the inpaint CLI's defaults
+  (max_batch 4) with the golden weights: base 432x240, 2 videos of 70
+  frames (chip_smoke phase 5), and HQ 864x480, one of 20 (phase 7):
+  frames/s and stage ms a video.
 
-It saves K1's and K2's base outputs to <dir>/<tag>.pt. The second form says
-which saved outputs are bit-equal between two trees. Every result line is
-JSON; the card's name and power limit come first.
+Every part also prints the SASS opcode histogram of its kernels
+(cuobjdump): load and store opcodes in full, the rest as a digest. The
+outputs of K1 and K2 at base and of E3 and E4 go to <dir>/<tag>.pt. The
+second form says which saved outputs are bit-equal between two trees. The
+third form reads the first form's output, saved as <tree>_<pair>.jsonl a
+run, and prints each tree's medians and, pair by pair, how often each ms
+was below its library call's (same run) and below the other tree's (same
+pair). Every result line is JSON; the card's name and power limit come
+first.
 """
 
 import argparse
@@ -30,13 +50,21 @@ import hashlib
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"base": (14, 60, 108), "864x480": (14, 120, 216)}
-KERNELS = ("deform_im2col_kernel", "flow_warp_kernel",
-           "deform_conv_wgmma_kernel", "focal_attention_wgmma_kernel")
+SASS = {"deform": ("deform_im2col_kernel", "flow_warp_kernel",
+                   "deform_conv_wgmma_kernel", "focal_attention_wgmma_kernel"),
+        "gather": ("row_gather_kernel", "bilinear4", "group_major_kernel"),
+        "serve_f32": ()}
+SPLIT_CALLS = 200
+GATHER_ITERS = 50    # cuda_ms calls a median for the ~0.05 ms gathers
+# (kernel's ms, its library call's ms) keys of a result line
+LIBRARY_KEYS = (("ms", "library_ms"), ("k2_ms", "grid_sample_ms"))
 
 
 def chip_smoke():
@@ -48,33 +76,56 @@ def chip_smoke():
     return mod
 
 
-def measure(root, tag, out_dir):
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-    from e2fgvi_tpu_torch.kernels import build, deform
-    from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    from e2fgvi_tpu_torch.utils import env
-    from e2fgvi_tpu_torch.utils.timing import cuda_ms
-    if not torch.cuda.is_available():
-        raise SystemExit("deform_ab: CUDA is not available")
-    env.setup()
-    cs = chip_smoke()
-    dev = "cuda"
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(json.dumps({"tag": tag, "root": root, "card": smi}), flush=True)
-    lib, _ = build.build()
-    build.library()
-    for k, c in cs.sass_histograms(lib, KERNELS).items():
-        shown = {op: n for op, n in sorted(c.items())
-                 if op.startswith(("LD", "ST", "HGMMA", "UTMA"))}
-        digest = hashlib.sha256(json.dumps(sorted(c.items())).encode())
-        print(json.dumps({"tag": tag, "sass": k, "total": sum(c.values()),
-                          "digest": digest.hexdigest()[:12], "ops": shown}),
-              flush=True)
+def host_us(fn, n=2000):
+    """Host microseconds a call of fn, over n calls."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
 
-    saved = {}
+
+def split(fn, n=SPLIT_CALLS):
+    """A call's host and device parts: `host_us`, the host clock around n
+    enqueues after a sync; `events_us`, CUDA events around the same n
+    back-to-back calls (the larger of host and device a call);
+    `device_us`, torch.profiler's device time a call, in all and by kernel
+    name (`kernels`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    b.record()
+    b.synchronize()
+    events = a.elapsed_time(b) / n * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            kernels[e.key[:80]] = t / n
+    return {"host_us": host, "events_us": events,
+            "device_us": sum(kernels.values()) if kernels else None,
+            "kernels": kernels}
+
+
+def run_deform(cs, tag, dev, saved):
+    import torch
+    from e2fgvi_tpu_torch.kernels import deform
+    from e2fgvi_tpu_torch.kernels import focal_attention as fa
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
     for label, (b, h, w) in SHAPES.items():
         flow1, flow2, k1_base, xfeat = cs.k1k2_inputs(cs._randn_fn(dev),
                                                       b, h, w)
@@ -118,6 +169,94 @@ def measure(root, tag, out_dir):
                 lambda: fa.focal_attention(*args))
         del args
     print(json.dumps(res), flush=True)
+
+
+def run_gather(cs, tag, dev, saved):
+    import torch
+    from e2fgvi_tpu_torch.experiments import exp_gather as eg
+    from e2fgvi_tpu_torch.kernels import build, deform, gather
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+
+    def timed(kernel, fn, lib_fn, **extra):
+        print(json.dumps({"tag": tag, "kernel": kernel, **extra,
+                          "ms": cuda_ms(fn, GATHER_ITERS),
+                          "library_ms": cuda_ms(lib_fn, GATHER_ITERS),
+                          "split": split(fn),
+                          "library_split": split(lib_fn)}), flush=True)
+
+    tab, idx, py, px = eg.make_inputs(dev)
+    h, w = 60, 108
+    with torch.inference_mode():
+        for dt in ("float32", "bfloat16"):
+            t = tab.to(getattr(torch, dt))
+            e3 = lambda: gather.row_gather(t, idx)  # noqa: E731
+            timed("row_gather", e3, cs.e3_library(t, idx), dtype=dt)
+            saved[f"row_gather_{dt}"] = e3().cpu()
+        e4 = lambda: gather.bilinear4_sample(tab, py, px, h, w)  # noqa: E731
+        timed("bilinear4_sample", e4, cs.e4_library(tab, py, px, h, w))
+        saved["bilinear4_sample"] = e4().cpu()
+        flow1, flow2, _, xfeat = cs.k1k2_inputs(cs._randn_fn(dev),
+                                                *SHAPES["base"])
+        wflow = torch.cat([flow1, flow2], 0)
+        timed("flow_warp", lambda: deform.flow_warp(xfeat, wflow),
+              cs.k2_library(xfeat, wflow), dtype="float32")
+        # the host part of the launch path every wrapper shares
+        t1 = torch.randn((1, 8), device=dev)
+        i1 = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+        pieces = {"stream_args": lambda: build.stream_args(t1),
+                  "check_cuda_inputs": lambda: deform.check_cuda_inputs(
+                      "x", t1, i1),
+                  "row_gather_1_row": lambda: gather.row_gather(t1, i1)}
+        print(json.dumps({"tag": tag, "kernel": "launch path", "host_us": {
+            k: host_us(f) for k, f in pieces.items()}}), flush=True)
+        torch.cuda.synchronize()
+
+
+def run_serve_f32(cs, tag, dev, saved):
+    import torch
+    from e2fgvi_tpu_torch.utils.timing import StageTimer
+    for variant, n, t, (h, w) in (("base", 2, 70, (240, 432)),
+                                  ("hq", 1, 20, (480, 864))):
+        model = cs.golden_model(variant, dev)
+        runs, _, _ = cs.serve(model, dev, n_videos=n, t=t,
+                              timer_cls=StageTimer, max_batch=4,
+                              dtype="float32", h=h, w=w)
+        for i, r in enumerate(runs):
+            print(json.dumps({"tag": tag, "serve": f"{variant} {w}x{h}",
+                              "video": i, **r}), flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+def measure(root, tag, out_dir, parts):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from e2fgvi_tpu_torch.kernels import build
+    from e2fgvi_tpu_torch.utils import env
+    if not torch.cuda.is_available():
+        raise SystemExit("deform_ab: CUDA is not available")
+    env.setup()
+    cs = chip_smoke()
+    dev = "cuda"
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(json.dumps({"tag": tag, "root": root, "card": smi}), flush=True)
+    lib, _ = build.build()
+    build.library()
+    kernels = [k for p in parts for k in SASS[p]]
+    for k, c in cs.sass_histograms(lib, kernels).items():
+        shown = {op: n for op, n in sorted(c.items())
+                 if op.startswith(("LD", "ST", "HGMMA", "UTMA"))}
+        digest = hashlib.sha256(json.dumps(sorted(c.items())).encode())
+        print(json.dumps({"tag": tag, "sass": k, "total": sum(c.values()),
+                          "digest": digest.hexdigest()[:12], "ops": shown}),
+              flush=True)
+    saved = {}
+    runners = {"deform": run_deform, "gather": run_gather,
+               "serve_f32": run_serve_f32}
+    for p in parts:
+        runners[p](cs, tag, dev, saved)
     os.makedirs(out_dir, exist_ok=True)
     torch.save(saved, os.path.join(out_dir, f"{tag}.pt"))
 
@@ -131,18 +270,82 @@ def compare(a, b):
                           "max_abs_diff": d}), flush=True)
 
 
+def _flat(prefix, d, out):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            _flat(f"{prefix}{k} ", v, out)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[f"{prefix}{k}"] = v
+
+
+def _runs(paths):
+    """{(tree, pair): {key: value}} from the first form's output files,
+    each named <tree>_<pair>.jsonl: every number of every result line,
+    keyed by the line's shape, dtype, kernel or serving run."""
+    runs = {}
+    for path in paths:
+        tree, pair = os.path.basename(path).rsplit(".", 1)[0].rsplit("_", 1)
+        vals = runs.setdefault((tree, int(pair)), {})
+        with open(path) as f:
+            for line in f:
+                if not line.startswith("{"):
+                    continue
+                r = json.loads(line)
+                if "sass" in r or "card" in r or "tag" not in r:
+                    continue
+                name = " ".join(str(r[k]) for k in (
+                    "serve", "video", "shape", "kernel", "dtype") if k in r)
+                _flat(f"{name}: ", {k: v for k, v in r.items()
+                                    if k not in ("video",)}, vals)
+    return runs
+
+
+def summarize(paths):
+    runs = _runs(paths)
+    trees = sorted({t for t, _ in runs})
+    for tree in trees:
+        mine = {i: v for (t, i), v in runs.items() if t == tree}
+        keys = sorted({k for v in mine.values() for k in v})
+        print(json.dumps({"tree": tree, "runs": len(mine), "median": {
+            k: statistics.median(v[k] for v in mine.values() if k in v)
+            for k in keys}}), flush=True)
+        wins = {}
+        for k in keys:
+            name, _, key = k.rpartition(": ")
+            for ms, lib in LIBRARY_KEYS:
+                if key == ms:
+                    wins[f"{k} < {lib}"] = sum(
+                        v[k] < v[f"{name}: {lib}"] for v in mine.values()
+                        if k in v and f"{name}: {lib}" in v)
+            # ms: lower is better; frames/s: higher
+            sign = 1 if key.endswith("ms") else -1 if key == "fps" else 0
+            for other in trees if sign and "split" not in key else ():
+                if other != tree:
+                    wins[f"{k} {'<' if sign > 0 else '>'} {other}'s"] = sum(
+                        sign * (v[k] - runs[(other, i)][k]) < 0
+                        for i, v in mine.items()
+                        if k in v and k in runs.get((other, i), {}))
+        print(json.dumps({"tree": tree, "pairs": len(mine), "wins": wins}),
+              flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=ROOT)
     p.add_argument("--tag", default="tree")
     # the saved outputs are ~0.3 GB: compare them on the card's machine
     p.add_argument("--out", default=os.path.join(ROOT, "build", "ab", "out"))
+    p.add_argument("--parts", nargs="+", choices=sorted(SASS),
+                   default=["deform", "gather"])
     p.add_argument("--compare", nargs=2)
+    p.add_argument("--summarize", nargs="+", metavar="RUN.jsonl")
     args = p.parse_args(argv)
     if args.compare:
         compare(*args.compare)
+    elif args.summarize:
+        summarize(args.summarize)
     else:
-        measure(args.root, args.tag, args.out)
+        measure(args.root, args.tag, args.out, args.parts)
 
 
 if __name__ == "__main__":
