@@ -86,6 +86,24 @@ __host__ __device__ constexpr int words_of() {
   return V * (int)sizeof(T) >= 4 ? V * (int)sizeof(T) / 4 : 1;
 }
 
+// cvt.rna.tf32.f32 (nearest, ties away from zero) on finite x, in two
+// integer instructions: ptxas expands the cvt with NaN/Inf checks into
+// about five
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both tf32, for 3xTF32 products (small*small dropped by
+// the caller)
+struct Split {
+  unsigned big, small;
+};
+
+__device__ __forceinline__ Split split(float x) {
+  const unsigned big = to_tf32(x);
+  return {big, to_tf32(x - __uint_as_float(big))};
+}
+
 // Make `device` current for an entry point's launch: cudaSetDevice only
 // where another device is current (as PyTorch's c10::cuda::SetDevice
 // does), so a call on the current device costs one cudaGetDevice.

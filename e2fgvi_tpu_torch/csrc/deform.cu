@@ -10,12 +10,12 @@
 // corners directly, so any offset is exact and there is no band.
 //
 // Inputs are NHWC, so one group's channels (K1) or a pixel's channels (K2)
-// are one contiguous run. Corner reads and stores are 16-byte accesses
-// where the wrapper found the data 16-byte aligned (load_raw /
-// store_from_f32), narrower ones of the same kernel where it did not. The
-// four corners' loads are issued before their sums, in the corner order
-// 00, 01, 10, 11, with one float32 FMA per corner and channel and one
-// rounding at the store, so every width gives the same bits.
+// are one contiguous run. Corner reads are 16-byte loads (K2's, and its
+// stores, narrower ones of the same kernel where the wrapper found x
+// misaligned; K1's wrapper copies a misaligned x). The four corners' loads
+// are issued before their sums, in the corner order 00, 01, 10, 11, with
+// one float32 FMA per corner and channel, so every width gives the same
+// bits.
 //
 // K2 (flow_warp_kernel): 16 bytes of channels of two pixels a thread (of
 // one pixel where a thread takes all of a pixel's channels, as in the
@@ -25,15 +25,13 @@
 // it: bytes (four corner reads, mostly L2 hits, and one write per output
 // element); see the note there.
 //
-// K1 in bfloat16 (namespace fused, deform_conv_wgmma_kernel): one kernel
-// samples the im2col tile straight into shared memory and contracts it
-// there with wgmma; see the note there. K1 in float32
-// (deform_im2col_kernel): one thread per (pixel, group, tap) writes 16
-// samples of an im2col matrix that a cuBLAS float32 GEMM contracts, as the
-// JAX package also contracts outside its kernel
-// (dcn_band.py:_sample_and_contract). The offset/mask prelude (10*tanh +
-// flow, sigmoid) is fused into both, so the (N,H,W,G,K,2) offset tensor
-// never exists.
+// K1 is one kernel in both dtypes: it samples the im2col tile straight
+// into shared memory and contracts it there with wgmma, the weight
+// arriving by TMA, so no im2col matrix goes to device memory. bfloat16
+// (namespace fused, deform_conv_wgmma_kernel) and float32 (namespace
+// fused_tf32, deform_conv_tf32_kernel, 3xTF32) have a note each. The
+// offset/mask prelude (10*tanh + flow, sigmoid) is fused into both, so the
+// (N,H,W,G,K,2) offset tensor never exists.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -178,55 +176,6 @@ __device__ __forceinline__ Sample sample_at(float dy, float dx, float logit,
   return s;
 }
 
-// float32 K1: one thread per (n, output pixel, group g, tap k). Writes
-// col[n*P + p, (g*K + k)*CG + c] for c in [0, CG), P = Ho*Wo.
-// head: (N, Ho, Wo, 3*K*G) raw offset-head output; channel (g*K+k)*2 + 0/1
-// is the (dy, dx) residual, channel 2*K*G + g*K + k the mask logit.
-// flow1/flow2: (N, Ho, Wo, 2) float32, (dx, dy) order; groups g < G/2 take
-// flow1 and the rest flow2 (the second-order deformable alignment).
-template <int NC, int V>
-__global__ void __launch_bounds__(256)
-deform_im2col_kernel(const float* __restrict__ x,
-                     const float* __restrict__ head,
-                     const float* __restrict__ flow1,
-                     const float* __restrict__ flow2, float* __restrict__ col,
-                     int N, int H, int W, int Cin, int Ho, int Wo, int G,
-                     int K, int kw, int pad, float max_residue) {
-  const int CG = Cin / G;
-  const long long P = (long long)Ho * Wo;
-  const long long total = (long long)N * P * G * K;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int k = (int)(i % K);
-  long long r = i / K;
-  const int g = (int)(r % G);
-  r /= G;                       // r = n*P + p
-  const int p = (int)(r % P);
-  const int n = (int)(r / P);
-  const int oy = p / Wo, ox = p % Wo;
-
-  const float* hp = head + r * (3LL * K * G);
-  const int oc = (g * K + k) * 2;
-  const float* fl = (g < G / 2 ? flow1 : flow2) + r * 2;
-  const Sample s = sample_at(hp[oc], hp[oc + 1], hp[2 * K * G + g * K + k],
-                             fl[0], fl[1], oy, ox, k / kw, k % kw, pad,
-                             max_residue);
-  const Corners c[1] = {corners_of(H, W, Cin, s.py, s.px, 1.f)};
-  const float* img = x + (long long)n * H * W * Cin + g * CG;
-  float* out = col + i * CG;
-  for (int c0 = 0; c0 < CG; c0 += NC) {
-    float acc[1][NC];
-#pragma unroll
-    for (int q = 0; q < NC; ++q) acc[0][q] = 0.f;
-    gather_corners<float, NC, V, 1>(img, c, c0, acc);
-#pragma unroll
-    for (int q = 0; q < NC; ++q) acc[0][q] *= s.m;
-#pragma unroll
-    for (int q = 0; q < NC; q += V)
-      store_from_f32<float, V>(out + c0 + q, acc[0] + q);
-  }
-}
-
 // K2: backward warp of an NHWC map by a dense (dx, dy) float32 flow,
 // bilinear, zeros outside. An item is NC channels of PX consecutive
 // pixels, consecutive threads take consecutive chunks (at C = 128 a
@@ -290,6 +239,19 @@ flow_warp_kernel(const T* __restrict__ x, const float* __restrict__ flow,
   }
 }
 
+// The arguments of both K1 kernels; T is x's, head's and out's type
+template <typename T>
+struct ConvParams {
+  const T* x;           // (N, H, W, Cin)
+  const T* head;        // (N, Ho, Wo, 3*K*G)
+  const float* flow1;   // (N, Ho, Wo, 2), groups g < G/2
+  const float* flow2;   // (N, Ho, Wo, 2), the rest
+  const float* bias;    // (Cout,) float32
+  T* out;               // (M, Cout)
+  int M, H, W, Cin, Ho, Wo, G, K, kw, pad, chunks;
+  float max_residue;
+};
+
 // ---------------------------------------------------------------------------
 // bfloat16 K1: the sampler and the contraction in one kernel
 //
@@ -323,8 +285,8 @@ flow_warp_kernel(const T* __restrict__ x, const float* __restrict__ flow,
 //   loads in flight together, the blend in f32, the mask, one rounding to
 //   bf16, and four 16-byte st.shared into the swizzled K-major stage (the
 //   16-byte chunk j of row r lands at chunk j ^ (r & 7), the address
-//   pattern desc_sw128 reads). The values are the float32 im2col
-//   kernel's arithmetic, rounded once.
+//   pattern desc_sw128 reads). The values are the float32 blend,
+//   rounded once.
 // * Overlap: two A stages. While chunk i's four wgmma run, the same warps
 //   sample chunk i + 1 into the other stage; wgmma.wait_group 1 frees the
 //   stage chunk i - 1 read. Each thread fences its stores to the async
@@ -354,16 +316,7 @@ constexpr int kBarOff = kBOff + kBStages * kBTile;
 // + 1 KB to align the base to the 128-byte swizzle's 1024-byte period
 constexpr int kSmemBytes = kBarOff + 8 * 2 * kBStages + 1024;
 
-struct Params {
-  const bf16* x;        // (N, H, W, Cin)
-  const bf16* head;     // (N, Ho, Wo, 3*K*G)
-  const float* flow1;   // (N, Ho, Wo, 2), groups g < G/2
-  const float* flow2;   // (N, Ho, Wo, 2), the rest
-  const float* bias;    // (Cout,) float32
-  bf16* out;            // (M, Cout)
-  int M, H, W, Cin, Ho, Wo, G, K, kw, pad, chunks;
-  float max_residue;
-};
+using Params = ConvParams<bf16>;
 
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
@@ -570,21 +523,23 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 }
 
 // wk: the weight as (Cout, G*K*16) bf16, K-major, column (g*K + k)*16 + c
-int launch(const Params& prm, const void* wk, cudaStream_t stream) {
+int launch(Params prm, const void* wk, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       deform_conv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int ktot = prm.G * prm.K * kCG;
-  if (prm.Cin != prm.G * kCG || ktot % kBK != 0 || prm.chunks * kBK != ktot)
+  if (prm.Cin != prm.G * kCG || ktot % kBK != 0)
     return (int)cudaErrorInvalidValue;
+  prm.chunks = ktot / kBK;
   if (prm.M == 0) return (int)cudaGetLastError();
   const cuuint64_t dims[3] = {(cuuint64_t)ktot, (cuuint64_t)kCout, 1};
   const cuuint64_t strides[2] = {(cuuint64_t)ktot * 2,
                                  (cuuint64_t)ktot * 2 * kCout};
   const cuuint32_t box[3] = {(cuuint32_t)kBK, (cuuint32_t)kCout, 1};
   CUtensorMap wmap;
-  if (!hopper::encode_bf16_sw128(&wmap, wk, dims, strides, box))
+  if (!hopper::encode_sw128(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wk, dims,
+                           strides, box))
     return (int)cudaErrorInvalidValue;
   deform_conv_wgmma_kernel<<<blocks_for(prm.M, kBM), kThreads, kSmemBytes,
                              stream>>>(wmap, prm);
@@ -593,29 +548,349 @@ int launch(const Params& prm, const void* wk, cudaStream_t stream) {
 
 }  // namespace fused
 
-// Launchers of the float32 im2col and of K2, dispatched on the channels a
-// thread takes (nc) and the elements a load takes (vec, a power of two
-// dividing nc, as wide as the data's alignment allows).
-template <int NC, int V = (NC < 4 ? NC : 4)>
-void launch_im2col(int vec, const void* x, const void* head,
-                   const void* flow1, const void* flow2, void* col, int N,
-                   int H, int W, int Cin, int Ho, int Wo, int G, int K,
-                   int kw, int pad, float max_residue, cudaStream_t stream) {
-  if constexpr (V > 1) {
-    if (vec < V)
-      return launch_im2col<NC, V / 2>(vec, x, head, flow1, flow2, col, N, H,
-                                      W, Cin, Ho, Wo, G, K, kw, pad,
-                                      max_residue, stream);
+// ---------------------------------------------------------------------------
+// float32 K1: the sampler and a 3xTF32 contraction in one kernel
+//
+// Replaces dcn_band.py::_sampler_kernel together with the XLA einsum that
+// contracts its samples (dcn_band.py:569, _sample_and_contract): Mosaic
+// could not relayout the sampled taps for the MXU in place, so the TPU
+// kernel fused nothing. The GEMM is the bf16 kernel's, M pixels x K =
+// G*9*16 x 128, in float32.
+//
+// Precision: the port pins full float32, and one TF32 pass (10 mantissa
+// bits) lands ~1e-3 off. So each operand x splits into big = rna_tf32(x)
+// and small = rna_tf32(x - big), and each product is small*big +
+// big*small + big*big (small*small, ~2^-22 relative, is dropped), as the
+// f32 K3 does on mma.sync. The tensor cores truncate every float32
+// accumulation toward zero, so the error grows with the steps chained into
+// one accumulator at the sum's magnitude. With big*big kept apart from the
+// corrections, K = 2304 chains 288 k8 steps into big*big's accumulator:
+// 1.5e-5 from K1 in float64 at base B=14 (tools/deform_ab.py --parts
+// accuracy; NVIDIA H100 80GB HBM3). So, as K3's P V sum does, each
+// 32-wide K chunk's 12 wgmma start from zero in one accumulator that
+// joins the running sum by a rounded add: 7.5e-6, closer than the plain
+// float32 version (1.6e-5). Two m64n128 accumulators, 128 registers,
+// either way.
+//
+// What bounds it on the H100: 160.6 GFLOP of TF32 work at serving shapes
+// (0.324 ms at 495 TFLOP/s), and the corner reads: each pixel reads 144
+// samples x 4 corners x 64 bytes, ~3.3 GB a call of L1/L2 traffic, twice
+// the bf16 kernel's. The im2col matrix (0.84 GB at serving shapes, 7.5 GB
+// at 1296x720) never goes to device memory. The design is the bf16
+// kernel's (namespace fused: a TMA ring of the weight, two warpgroups of
+// 64 rows sampling chunk i + 1 while chunk i's wgmma run, the bias in the
+// epilogue, the ragged tile's rows sampled as zeros and not stored), with:
+// * No producer warpgroup. Beside it the consumers get at most 240
+//   registers (setmaxnreg), and the two accumulators and 16 corner loads in
+//   flight need ~250: that spilled. Thread 0 issues the weight's TMA loads
+//   instead: the first kBStages chunks, then, at the end of chunk i, chunk
+//   i - 1 + kBStages into the stage both warpgroups released after chunk
+//   i - 1 (the empty mbarrier), one chunk's sampling ahead of its use.
+// * wgmma m64n128k8 tf32, A and B both K-major (tf32 has no transposed
+//   form). A k8 step is 32 bytes of a row, as bf16's k16 is, so a
+//   128-byte swizzled row is one 32-wide K chunk, 2 (g, tap) slices: 4 k8
+//   steps of 3 wgmma, 72 chunks at serving widths.
+// * B: the weight split once per weight (kernels/deform.py conv_operands)
+//   into a (2, Cout, K) float32 tensor, big then small; one 3-D TMA box
+//   {32, 128, 2} brings a chunk of both (32 KB).
+// * A: the consumers sample as the bf16 kernel does, blend in f32 (corners
+//   00, 01, 10, 11, one FMA per corner and channel, then the mask), split
+//   each value and store big and small into the stage's two A tiles. A
+//   slice's 16 channels are 64 bytes, two sectors; lanes l and l + 16
+//   share a pixel row and take the 16-byte halves of both, so each warp
+//   load is 16 whole sectors (L1 requests, not L2 bytes, bound these
+//   samplers).
+// * 160 KB of shared memory: 2 A stages x (big + small) x 16 KB and 3 B
+//   stages x 32 KB. Each chunk waits for its own wgmma before its rounded
+//   join, after sampling the next chunk, which takes far longer.
+// ---------------------------------------------------------------------------
+namespace fused_tf32 {
+
+using fused::fence_proxy_async;
+using fused::st_shared_v4;
+using fused::warpgroup_sync;
+
+constexpr int kBM = 128;                   // pixels per block
+constexpr int kCG = 16;                    // channels per group
+constexpr int kCout = 128;                 // output channels = wgmma n
+constexpr int kBK = 32;                    // K per chunk: 2 (g, tap) slices
+constexpr int kBStages = 3;
+constexpr int kThreads = 256;              // two warpgroups of 64 rows
+constexpr int kATile = kBM * kBK * 4;      // 16 KB, big or small
+constexpr int kBTile = kCout * kBK * 4;    // 16 KB, big or small
+constexpr int kAOff = 0;                   // 2 stages of (big, small)
+constexpr int kBOff = kAOff + 2 * 2 * kATile;
+constexpr int kBarOff = kBOff + kBStages * 2 * kBTile;
+// + 1 KB to align the base to the 128-byte swizzle's 1024-byte period
+constexpr int kSmemBytes = kBarOff + 8 * 2 * kBStages + 1024;
+
+using Params = ConvParams<float>;
+
+__global__ void __launch_bounds__(kThreads, 1)
+deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const __grid_constant__ Params p) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sA = base + kAOff, sB = base + kBOff;
+  const uint32_t full0 = base + kBarOff, empty0 = full0 + 8 * kBStages;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kBM;
+
+  if (tid == 0) {
+    for (int s = 0; s < kBStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the weight's first K chunks, big and small in one box
+    for (int i = 0; i < kBStages && i < p.chunks; ++i) {
+      mbar_expect_tx(full0 + 8 * i, 2 * kBTile);
+      tma_load(sB + i * 2 * kBTile, &wmap, full0 + 8 * i, i * kBK, 0, 0);
+    }
   }
-  const long long total = (long long)N * Ho * Wo * G * K;
-  if (total == 0) return;
-  deform_im2col_kernel<NC, V><<<blocks_for(total, 256), 256, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(head),
-      static_cast<const float*>(flow1), static_cast<const float*>(flow2),
-      static_cast<float*>(col), N, H, W, Cin, Ho, Wo, G, K, kw, pad,
-      max_residue);
+  __syncthreads();
+
+  const int c = tid >> 7;                 // warpgroup: rows 64c ..
+  const int t = tid & 127;
+  const int warp = t >> 5, lane = t & 31;
+  // this thread's A row in the tile, and its channels 4e .. 4e + 3 and
+  // 8 + 4e .. 8 + 4e + 3 of every slice (lanes l and l + 16 share a row)
+  const int row = c * 64 + warp * 16 + (lane & 15);
+  const int e = lane >> 4;
+  const int m = m0 + row;
+  const bool live = m < p.M;
+  const int GK = p.G * p.K;
+
+  // the pixel's coordinates, flows, head row and image
+  int n = 0, oy = 0, ox = 0;
+  float2 f1 = make_float2(0.f, 0.f), f2 = f1;
+  const float* hp = p.head;
+  const float* img = p.x;
+  if (live) {
+    const int P = p.Ho * p.Wo;
+    n = m / P;
+    const int pp = m - n * P;
+    oy = pp / p.Wo;
+    ox = pp - oy * p.Wo;
+    f1 = __ldg(reinterpret_cast<const float2*>(p.flow1) + m);
+    f2 = __ldg(reinterpret_cast<const float2*>(p.flow2) + m);
+    hp = p.head + (long long)m * 3 * GK;
+    img = p.x + (long long)n * p.H * p.W * p.Cin + 4 * e;
+  }
+  const uint32_t a_row = row * 128;
+  const int sw = row & 7;
+
+  // the head values of chunk q's slices 2q, 2q + 1: h[2s], h[2s + 1] the
+  // (dy, dx) of slice s, h[4 + s] its mask logit
+  auto load_head = [&](int chunk, unsigned (&h)[6]) {
+    if (live && chunk < p.chunks) {
+      load_words<8>(hp + 4 * chunk, h);
+      load_words<8>(hp + 4 * chunk + 2, h + 2);
+      load_words<8>(hp + 2 * GK + 2 * chunk, h + 4);
+    }
+  };
+  // chunk `chunk` of this thread's row and channels into an A stage: big
+  // at stage, small at stage + kATile
+  auto sample = [&](int chunk, const unsigned (&h)[6], uint32_t stage) {
+    float v[2][8];  // slice s: channels 4e .. 4e + 3, then 8 + 4e ..
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[s][k] = 0.f;
+    if (live) {
+      // the corners' element offsets in 32 bits (an image of x is under
+      // 2^31 elements) and their weights
+      int off[2][4];
+      float cw[2][4], mk[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int q = 2 * chunk + s;
+        const int g = q / p.K;
+        const int k = q - g * p.K;
+        const int ky = k / p.kw;
+        const float2 fl = g < p.G / 2 ? f1 : f2;
+        const Sample sm = sample_at(
+            __uint_as_float(h[2 * s]), __uint_as_float(h[2 * s + 1]),
+            __uint_as_float(h[4 + s]), fl.x, fl.y, oy, ox, ky,
+            k - ky * p.kw, p.pad, p.max_residue);
+        mk[s] = sm.m;
+        const Corners cr = corners_of(p.H, p.W, p.Cin, sm.py, sm.px, 1.f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          off[s][i] = (int)cr.off[i] + g * kCG;
+          cw[s][i] = cr.w[i];
+        }
+      }
+      // every load of both slices in flight together, then the FMAs in
+      // corner order; a corner of weight 0 is neither read nor added
+      unsigned w[2][4][2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (cw[s][i] != 0.f) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              load_words<16>(img + off[s][i] + 8 * hf, w[s][i][hf]);
+          }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (cw[s][i] != 0.f) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              v[s][k] += cw[s][i] * __uint_as_float(w[s][i][k / 4][k % 4]);
+          }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[s][k] *= mk[s];
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float* a = v[s] + 4 * hf;
+        const Split x0 = split(a[0]), x1 = split(a[1]), x2 = split(a[2]),
+                    x3 = split(a[3]);
+        // 16-byte chunk j of the row: slice s's bytes 32 hf + 16 e
+        const uint32_t at = a_row + (((4 * s + 2 * hf + e) ^ sw) << 4);
+        st_shared_v4(stage + at, make_uint4(x0.big, x1.big, x2.big, x3.big));
+        st_shared_v4(stage + kATile + at,
+                     make_uint4(x0.small, x1.small, x2.small, x3.small));
+      }
+  };
+
+  // A operands of this warpgroup: its 64 rows of each tile, 128 bytes
+  // each; k-step kk of a chunk reads bytes 32kk.. of every row
+  const uint32_t a_wg = sA + c * 64 * 128;
+  // acc: chunk i's 3xTF32 products, from zero; sum: the chunks before,
+  // joined by rounded adds
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
+
+  unsigned h_cur[6], h_next[6];
+  load_head(0, h_cur);
+  load_head(1, h_next);
+  sample(0, h_cur, sA);
+  fence_proxy_async();
+  warpgroup_sync(c);
+  for (int i = 0; i < p.chunks; ++i) {
+    const int bs = i % kBStages;
+    mbar_wait(full0 + 8 * bs, (i / kBStages) & 1);
+    const uint32_t a_st = a_wg + (i & 1) * 2 * kATile;
+    const uint32_t b_st = sB + bs * 2 * kBTile;
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const uint64_t a_big = desc_sw128(a_st + kk * 32, 16, 1024);
+      const uint64_t a_small = desc_sw128(a_st + kATile + kk * 32, 16, 1024);
+      const uint64_t b_big = desc_sw128(b_st + kk * 32, 16, 1024);
+      const uint64_t b_small = desc_sw128(b_st + kBTile + kk * 32, 16, 1024);
+      wgmma_tf32(acc, a_small, b_big, kk > 0);
+      wgmma_tf32(acc, a_big, b_small, 1);
+      wgmma_tf32(acc, a_big, b_big, 1);
+    }
+    wg_commit();
+    if (i + 1 < p.chunks) {
+      // chunk i + 1 into the A stage chunk i - 1 read, while chunk i's
+      // wgmma run
+#pragma unroll
+      for (int w = 0; w < 6; ++w) h_cur[w] = h_next[w];
+      load_head(i + 2, h_next);
+      sample(i + 1, h_cur, sA + ((i + 1) & 1) * 2 * kATile);
+      fence_proxy_async();
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty0 + 8 * bs);  // chunk i's B stage is free
+#pragma unroll
+    for (int j = 0; j < 64; ++j) sum[j] += acc[j];
+    if (tid == 0 && i > 0 && i - 1 + kBStages < p.chunks) {
+      // chunk i - 1's stage, once both warpgroups are done with it, takes
+      // chunk i - 1 + kBStages: a chunk's sampling ahead of its use
+      const int fs = (i - 1) % kBStages;
+      mbar_wait(empty0 + 8 * fs, ((i - 1) / kBStages) & 1);
+      mbar_expect_tx(full0 + 8 * fs, 2 * kBTile);
+      tma_load(sB + fs * 2 * kBTile, &wmap, full0 + 8 * fs,
+               (i - 1 + kBStages) * kBK, 0, 0);
+    }
+    warpgroup_sync(c);
+  }
+
+  // sum[4i + e]: row 16*warp + g (e < 2) or g + 8 of the warpgroup's 64,
+  // column 8i + 2t + (e & 1)
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int mr = m0 + c * 64 + warp * 16 + gq + 8 * r;
+    if (mr >= p.M) continue;
+    float* dst = p.out + (long long)mr * kCout + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int a = 4 * i + 2 * r;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(p.bias + 8 * i + 2 * tq));
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2(sum[a] + b.x, sum[a + 1] + b.y);
+    }
+  }
 }
 
+// wk: the weight as (2, Cout, G*K*16) float32, its tf32 big and small
+// parts, K-major, column (g*K + k)*16 + c
+int launch(Params prm, const void* wk, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      deform_conv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int ktot = prm.G * prm.K * kCG;
+  if (prm.Cin != prm.G * kCG || ktot % kBK != 0 ||
+      (long long)prm.H * prm.W * prm.Cin >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  prm.chunks = ktot / kBK;
+  if (prm.M == 0) return (int)cudaGetLastError();
+  const cuuint64_t dims[3] = {(cuuint64_t)ktot, (cuuint64_t)kCout, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)ktot * 4,
+                                 (cuuint64_t)ktot * 4 * kCout};
+  const cuuint32_t box[3] = {(cuuint32_t)kBK, (cuuint32_t)kCout, 2};
+  CUtensorMap wmap;
+  if (!hopper::encode_sw128(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wk, dims,
+                           strides, box))
+    return (int)cudaErrorInvalidValue;
+  deform_conv_tf32_kernel<<<blocks_for(prm.M, kBM), kThreads, kSmemBytes,
+                            stream>>>(wmap, prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fused_tf32
+
+// K1's arguments; `chunks` is set by the dtype's launch
+template <typename T>
+ConvParams<T> conv_params(const void* x, const void* head, const void* flow1,
+                          const void* flow2, const void* bias, void* out,
+                          int N, int H, int W, int Cin, int Ho, int Wo, int G,
+                          int K, int kw, int pad, float max_residue) {
+  ConvParams<T> prm;
+  prm.x = static_cast<const T*>(x);
+  prm.head = static_cast<const T*>(head);
+  prm.flow1 = static_cast<const float*>(flow1);
+  prm.flow2 = static_cast<const float*>(flow2);
+  prm.bias = static_cast<const float*>(bias);
+  prm.out = static_cast<T*>(out);
+  prm.M = N * Ho * Wo;
+  prm.H = H, prm.W = W, prm.Cin = Cin, prm.Ho = Ho, prm.Wo = Wo;
+  prm.G = G, prm.K = K, prm.kw = kw, prm.pad = pad, prm.chunks = 0;
+  prm.max_residue = max_residue;
+  return prm;
+}
+
+// Launchers of K2, dispatched on the channels a thread takes (nc) and the
+// elements a load takes (vec, a power of two dividing nc, as wide as the
+// data's alignment allows).
 template <typename T, int NC, int V, int PX>
 void launch_warp_items(const void* x, const void* flow, void* out, int N,
                        int H, int W, int C, cudaStream_t stream) {
@@ -675,52 +950,32 @@ void dispatch_warp(int nc, int vec, const void* x, const void* flow,
 // the group width (K1) or the channel count (K2); `vec` the elements per
 // load; the wrapper picks both.
 
-// float32 K1's sampler: the im2col matrix (N*Ho*Wo, G*K*CG)
-extern "C" int e2fgvi_deform_im2col(int nc, int vec, const void* x,
-                                    const void* head, const void* flow1,
-                                    const void* flow2, void* col, int N,
-                                    int H, int W, int Cin, int Ho, int Wo,
-                                    int G, int K, int kw, int pad,
-                                    float max_residue, int device,
-                                    void* stream) {
+// K1, sampler and contraction in one kernel: out (N*Ho*Wo, 128) of x's
+// dtype = samples x weight^T + bias. wk: the weight K-major, column
+// (g*K + k)*16 + c, as (128, G*K*16) bf16 for bfloat16 and as (2, 128,
+// G*K*16) float32 (its tf32 big and small parts) for float32; bias (128,)
+// float32; Cin = 16*G and G*K a multiple of 4 (bfloat16) or 2 (float32);
+// x, wk and out 16-byte aligned, head, the flows and bias 8-byte aligned.
+extern "C" int e2fgvi_deform_conv(int dtype, const void* x, const void* head,
+                                  const void* flow1, const void* flow2,
+                                  const void* wk, const void* bias,
+                                  void* out, int N, int H, int W, int Cin,
+                                  int Ho, int Wo, int G, int K, int kw,
+                                  int pad, float max_residue, int device,
+                                  void* stream) {
   const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nc) {
-    case 16: e2fgvi::launch_im2col<16>(vec, x, head, flow1, flow2, col, N, H, W, Cin, Ho, Wo, G, K, kw, pad, max_residue, s); break;
-    case 8: e2fgvi::launch_im2col<8>(vec, x, head, flow1, flow2, col, N, H, W, Cin, Ho, Wo, G, K, kw, pad, max_residue, s); break;
-    case 4: e2fgvi::launch_im2col<4>(vec, x, head, flow1, flow2, col, N, H, W, Cin, Ho, Wo, G, K, kw, pad, max_residue, s); break;
-    case 2: e2fgvi::launch_im2col<2>(vec, x, head, flow1, flow2, col, N, H, W, Cin, Ho, Wo, G, K, kw, pad, max_residue, s); break;
-    default: e2fgvi::launch_im2col<1>(vec, x, head, flow1, flow2, col, N, H, W, Cin, Ho, Wo, G, K, kw, pad, max_residue, s); break;
-  }
-  return (int)cudaGetLastError();
-}
-
-// bfloat16 K1, sampler and contraction in one kernel: out (N*Ho*Wo, 128)
-// bf16 = samples x wk^T + bias. wk (128, G*K*16) bf16 K-major; bias (128,)
-// float32; Cin = 16*G and G*K a multiple of 4; x, wk and out 16-byte
-// aligned, head, the flows and bias 8-byte aligned.
-extern "C" int e2fgvi_deform_conv_fused(
-    const void* x, const void* head, const void* flow1, const void* flow2,
-    const void* wk, const void* bias, void* out, int N, int H, int W,
-    int Cin, int Ho, int Wo, int G, int K, int kw, int pad,
-    float max_residue, int device, void* stream) {
-  const cudaError_t dev_err = e2fgvi::use_device(device);
-  if (dev_err != cudaSuccess) return (int)dev_err;
-  using e2fgvi::hopper::bf16;
-  e2fgvi::fused::Params prm;
-  prm.x = static_cast<const bf16*>(x);
-  prm.head = static_cast<const bf16*>(head);
-  prm.flow1 = static_cast<const float*>(flow1);
-  prm.flow2 = static_cast<const float*>(flow2);
-  prm.bias = static_cast<const float*>(bias);
-  prm.out = static_cast<bf16*>(out);
-  prm.M = N * Ho * Wo;
-  prm.H = H, prm.W = W, prm.Cin = Cin, prm.Ho = Ho, prm.Wo = Wo;
-  prm.G = G, prm.K = K, prm.kw = kw, prm.pad = pad;
-  prm.chunks = G * K * e2fgvi::fused::kCG / e2fgvi::fused::kBK;
-  prm.max_residue = max_residue;
-  return e2fgvi::fused::launch(prm, wk, static_cast<cudaStream_t>(stream));
+  if (dtype == e2fgvi::kBFloat16)
+    return e2fgvi::fused::launch(
+        e2fgvi::conv_params<e2fgvi::hopper::bf16>(
+            x, head, flow1, flow2, bias, out, N, H, W, Cin, Ho, Wo, G, K, kw,
+            pad, max_residue),
+        wk, s);
+  return e2fgvi::fused_tf32::launch(
+      e2fgvi::conv_params<float>(x, head, flow1, flow2, bias, out, N, H, W,
+                                 Cin, Ho, Wo, G, K, kw, pad, max_residue),
+      wk, s);
 }
 
 extern "C" int e2fgvi_flow_warp(int dtype, int nc, int vec, const void* x,

@@ -111,23 +111,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// cvt.rna.tf32.f32 (nearest, ties away from zero) on finite x, in two
-// integer instructions: ptxas expands the cvt with NaN/Inf checks into
-// about five
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = big + small, both tf32 (small*small dropped by the caller)
-struct Split {
-  unsigned big, small;
-};
-
-__device__ __forceinline__ Split split(float x) {
-  const unsigned big = to_tf32(x);
-  return {big, to_tf32(x - __uint_as_float(big))};
-}
-
 // d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate
 __device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0,
                                          unsigned a1, unsigned a2,
@@ -626,7 +609,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int panels) {
   const cuuint64_t strides[2] = {(cuuint64_t)kHD * 2,
                                  (cuuint64_t)rows * kHD * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kBox, 128, 1};
-  return encode_bf16_sw128(map, ptr, dims, strides, box);
+  return encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, dims,
+                      strides, box);
 }
 
 int launch(const void* q, const void* k, const void* v, const void* bias,

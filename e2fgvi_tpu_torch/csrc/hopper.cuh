@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: the bf16 K3
-// (focal_attention.cu) and the bf16 K1 (deform.cu).
+// (focal_attention.cu) and K1 in both dtypes (deform.cu).
 //
 // - mbarriers with a wait that traps after ~2^33 clocks, so a broken
 //   pipeline fails the launch instead of hanging the card;
 // - TMA tile and bulk copies that complete on an mbarrier;
 // - wgmma m64n128k16 (bf16 in, f32 accumulate) with A from shared memory
-//   or registers, its 128-byte-swizzle descriptor and the group fences;
+//   or registers, wgmma m64n128k8 (tf32 in, both operands K-major in
+//   shared memory), their 128-byte-swizzle descriptor and the group
+//   fences;
 // - the host's cuTensorMapEncodeTiled, looked up in the libcuda PyTorch
 //   has loaded: the kernel library links no driver API.
 #pragma once
@@ -160,6 +162,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64x128, f32) = (accumulate ? d : 0) + A (64x8) B (8x128), A and B
+// tf32 K-major in shared memory (tf32 has no transposed form). A k8 step
+// is 32 bytes of a row, as bf16's k16 is, so desc_sw128 carries over.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " E2FGVI_WGMMA_D
+      ", %64, %65, p, 1, 1;\n}\n"
+      : E2FGVI_WGMMA_D_OPS(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -180,15 +195,16 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a 3-D bf16 tensor map with 128-byte swizzle: dims innermost first,
-// strides (bytes) of dims 1 and 2, box sizes; out-of-bounds reads are zeros
-inline bool encode_bf16_sw128(CUtensorMap* map, const void* ptr,
-                              const cuuint64_t (&dims)[3],
-                              const cuuint64_t (&strides)[2],
-                              const cuuint32_t (&box)[3]) {
+// a 3-D tensor map of `type` (bf16 or float32) with 128-byte swizzle: dims
+// innermost first, strides (bytes) of dims 1 and 2, box sizes (the
+// innermost at most 128 bytes); out-of-bounds reads are zeros
+inline bool encode_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* ptr, const cuuint64_t (&dims)[3],
+                         const cuuint64_t (&strides)[2],
+                         const cuuint32_t (&box)[3]) {
   if (encoder() == nullptr) return false;
   const cuuint32_t estride[3] = {1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encoder()(map, type, 3,
                    const_cast<void*>(ptr), dims, strides, box, estride,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -29,9 +29,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every entry point: pointers and the stream as c_void_p (a
 # plain int would be cut to 32 bits), sizes as c_int
 _SIGNATURES = {
-    "e2fgvi_deform_im2col": [_I, _I, _P, _P, _P, _P, _P] + [_I] * 10
-                            + [_F, _I, _P],
-    "e2fgvi_deform_conv_fused": [_P] * 7 + [_I] * 10 + [_F, _I, _P],
+    "e2fgvi_deform_conv": [_I] + [_P] * 7 + [_I] * 10 + [_F, _I, _P],
     "e2fgvi_flow_warp": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "e2fgvi_focal_attention": [_I] + [_P] * 5 + [_I] * 8 + [_P],
     "e2fgvi_band_sample": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],

@@ -5,21 +5,20 @@ banded_head and flow_warp_banded). The CUDA kernels are in csrc/deform.cu.
 The TPU kernel's band contract is not ported: the CUDA sampler gathers at
 any offset exactly.
 
-K1 in bfloat16 is one kernel, sampler and contraction together
-(deform_conv_fused, wgmma); in float32 the sampler writes an im2col matrix
-(deform_im2col) that one cuBLAS GEMM contracts. Each wrapper takes its
-plain PyTorch version for tensors on the CPU, and only then. For CUDA
-tensors it launches its kernel or raises. Kernels are forward-only: an
-input that requires grad raises. `LAUNCHES` counts the kernel launches of
-each wrapper; "deform_im2col" counts K1 in both dtypes.
+K1 is one kernel in both dtypes, sampler and contraction together
+(deform_conv_fused): wgmma on bf16 for bfloat16, on 3xTF32 for float32.
+Each wrapper takes its plain PyTorch version for tensors on the CPU, and
+only then. For CUDA tensors it launches its kernel or raises. Kernels are
+forward-only: an input that requires grad raises. `LAUNCHES` counts the
+kernel launches of each wrapper; "deform_conv" counts K1 in both dtypes.
 
-K1's weight and bias, reordered for its contraction (conv_operands), are
-made once by a caller that runs one weight many times (models/feat_prop.py)
-and passed in as `operands`. Misaligned data: K2's and the float32 K1
-sampler's loads are as wide as their x's alignment allows (the same kernel
-at a narrower load width); any other input the kernels read in vector
-loads (the flows, the fused K1's x and head) is copied to an aligned
-tensor where it is not aligned.
+K1's weight and bias, reordered (and in float32 split) for its contraction
+(conv_operands), are made once by a caller that runs one weight many times
+(models/feat_prop.py) and passed in as `operands`. Misaligned data: K2's
+loads are as wide as its x's alignment allows (the same kernel at a
+narrower load width); any other input the kernels read in vector loads
+(the flows, K1's x and head) is copied to an aligned tensor where it is
+not aligned.
 """
 
 from typing import NamedTuple
@@ -30,12 +29,14 @@ from e2fgvi_tpu_torch.kernels import build
 from e2fgvi_tpu_torch.ops.warp import flow_warp as flow_warp_plain
 from e2fgvi_tpu_torch.ops.warp import grid_sample_bilinear
 
-LAUNCHES = {"deform_im2col": 0, "flow_warp": 0}
+LAUNCHES = {"deform_conv": 0, "flow_warp": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the fused bf16 K1's contract: 16 channels a group (one k16 wgmma step per
-# (group, tap)), 128 output channels (the wgmma's n), whole 64-wide K chunks
-FUSED_CG, FUSED_COUT, FUSED_CHUNK = 16, 128, 64
+# K1's contract: 16 channels a group, 128 output channels (the wgmma's n),
+# and whole K chunks of (group, tap) slices: 64 wide in bfloat16 (4 k16
+# steps), 32 in float32 (one 128-byte row of 32 floats, 4 tf32 k8 steps)
+FUSED_CG, FUSED_COUT = 16, 128
+FUSED_CHUNK = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def _channel_chunk(c: int, widest: int) -> int:
@@ -151,8 +152,9 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None, padding=1):
 
 def deform_columns_plain(x, head, flow_1, flow_2, kh=3, kw=3, padding=1,
                          max_residue=10.0):
-    """Plain version of deform_im2col: K1's im2col matrix in float32,
-    (N*Ho*Wo, G*K*CG), row n*P + p, column (g*K + k)*CG + c."""
+    """K1's im2col matrix in float32, (N*Ho*Wo, G*K*CG), row n*P + p,
+    column (g*K + k)*CG + c: the A operand that the kernels sample into
+    shared memory tile by tile."""
     offsets, mask = offsets_from_head(head, flow_1, flow_2, max_residue,
                                       kh * kw)
     cols = _sample_columns(x, offsets, mask, kw, padding)
@@ -172,13 +174,26 @@ def fused_weight(weight, dtype=None, groups=None):
     return w.reshape(cout, cin * kh * kw).contiguous()
 
 
+def split_tf32(t):
+    """(big, small): float32 t split into two tf32 values (13 low mantissa
+    bits zero) by the kernels' integer rounding, nearest with ties away
+    from zero (cvt.rna.tf32.f32 on finite values): big = rna(t), small =
+    rna(t - big). big + small is t to within 2^-22 |t|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(t)
+    return big, rna(t - big)
+
+
 class ConvOperands(NamedTuple):
-    """K1's weight and bias as the CUDA path contracts them: in bfloat16
-    the fused kernel's B operand (Cout, G*K*CG), K-major (fused_weight),
-    and the bias rounded to bfloat16, held in float32 (zeros where there is
-    none); in float32 the GEMM's (G*K*CG, Cout) and the bias or None."""
+    """K1's weight and bias as the fused kernel contracts them: the B
+    operand K-major, column (g*K + k)*CG + c (fused_weight) — in bfloat16
+    (Cout, K); in float32 (2, Cout, K), its tf32 big then small parts
+    (split_tf32) — and the bias in float32 (in bfloat16 rounded to bf16
+    first), zeros where there is none."""
     weight: torch.Tensor
-    bias: torch.Tensor | None
+    bias: torch.Tensor
 
 
 def conv_operands(weight, bias, dtype, groups=None) -> ConvOperands:
@@ -186,15 +201,15 @@ def conv_operands(weight, bias, dtype, groups=None) -> ConvOperands:
     for inputs of `dtype` and G `groups` (default Cin / 16, the fused
     kernel's): made once for every call that uses one weight."""
     weight = weight.detach()
-    if dtype == torch.bfloat16:
-        if bias is None:
-            b32 = torch.zeros(weight.shape[0], dtype=torch.float32,
-                              device=weight.device)
-        else:
-            b32 = bias.detach().to(torch.bfloat16).float().contiguous()
-        return ConvOperands(fused_weight(weight, torch.bfloat16), b32)
-    return ConvOperands(fused_weight(weight, dtype, groups).t().contiguous(),
-                        None if bias is None else bias.detach().to(dtype))
+    if bias is None:
+        b32 = torch.zeros(weight.shape[0], dtype=torch.float32,
+                          device=weight.device)
+    else:
+        b32 = bias.detach().to(dtype).float().contiguous()
+    wk = fused_weight(weight, dtype, groups)
+    if dtype == torch.float32:
+        wk = torch.stack(split_tf32(wk))
+    return ConvOperands(wk, b32)
 
 
 def deform_conv_head_plain(x, head, flow_1, flow_2, weight, bias=None,
@@ -226,43 +241,11 @@ def _conv_geometry(name, x, head, flow_1, flow_2, kh, kw, padding):
     return n, h, w, cin, ho, wo, g, k
 
 
-def deform_im2col(x, head, flow_1, flow_2, kh=3, kw=3, padding=1,
-                  max_residue=10.0):
-    """Launch the float32 K1 sampler: the offset/mask prelude and the
-    bilinear sampling.
-
-    x: (N, H, W, Cin) CUDA float32; head: (N, Ho, Wo, 3*K*G) float32;
-    flows (N, Ho, Wo, 2) float32. Returns the im2col matrix (N*Ho*Wo,
-    G*K*CG), row n*P + p, column (g*K + k)*CG + c (deform_columns_plain).
-    bfloat16 K1 is deform_conv_fused: it keeps no im2col matrix."""
-    x, head = x.contiguous(), head.contiguous()
-    flow_1 = flow_1.float().contiguous()
-    flow_2 = flow_2.float().contiguous()
-    check_cuda_inputs("deform_im2col", x, head, flow_1, flow_2)
-    if x.dtype != torch.float32 or head.dtype != torch.float32:
-        raise ValueError(f"deform_im2col: x {x.dtype} / head {head.dtype} "
-                         "must be float32; bfloat16 K1 is deform_conv_fused")
-    n, h, w, cin, ho, wo, g, k = _conv_geometry(
-        "deform_im2col", x, head, flow_1, flow_2, kh, kw, padding)
-    cg = cin // g
-    nc = _channel_chunk(cg, 16)
-    xp = x.data_ptr()
-    col = torch.empty((n * ho * wo, g * k * cg), dtype=x.dtype,
-                      device=x.device)
-    err = build.library().e2fgvi_deform_im2col(
-        nc, load_width(nc, 4, xp), xp, head.data_ptr(),
-        flow_1.data_ptr(), flow_2.data_ptr(), col.data_ptr(), n, h, w, cin,
-        ho, wo, g, k, kw, padding, float(max_residue),
-        *build.stream_args(x))
-    build.check(err, "deform_im2col")
-    LAUNCHES["deform_im2col"] += 1
-    return col
-
-
 def check_fused_shapes(x, head, weight):
-    """Raise unless the fused bf16 K1 takes these shapes: Cin = 16 G (16
-    channels a group, one k16 wgmma step per (group, tap)), Cout = 128 (the
-    wgmma's n) and G*kh*kw a multiple of 4 (whole 64-wide K chunks)."""
+    """Raise unless the fused K1 takes these shapes: Cin = 16 G (16
+    channels a group), Cout = 128 (the wgmma's n) and whole K chunks:
+    G*kh*kw a multiple of 4 in bfloat16 (64-wide chunks), even in float32
+    (32-wide); in float32 also an image of x under 2^31 elements."""
     cout, cin, kh, kw = weight.shape
     k = kh * kw
     g = head.shape[-1] // (3 * k)
@@ -275,46 +258,54 @@ def check_fused_shapes(x, head, weight):
     if cout != FUSED_COUT:
         raise ValueError(f"deform_conv_fused takes Cout == {FUSED_COUT}; "
                          f"got {cout}")
-    if (g * k * FUSED_CG) % FUSED_CHUNK:
-        raise ValueError(f"deform_conv_fused takes G*kh*kw a multiple of 4 "
-                         f"(whole {FUSED_CHUNK}-wide K chunks); got "
+    chunk = FUSED_CHUNK[x.dtype]
+    if (g * k * FUSED_CG) % chunk:
+        rule = "a multiple of 4" if chunk == 64 else "even"
+        raise ValueError(f"deform_conv_fused takes G*kh*kw {rule} in "
+                         f"{x.dtype} (whole {chunk}-wide K chunks); got "
                          f"G={g}, {kh}x{kw} taps")
+    if x.dtype == torch.float32 and x[0].numel() >= 2 ** 31:
+        raise ValueError("deform_conv_fused takes images of x under 2^31 "
+                         "elements in float32 (32-bit corner offsets)")
 
 
 def deform_conv_fused(x, head, flow_1, flow_2, weight, bias=None,
                       max_residue=10.0, padding=1, operands=None):
-    """Launch the bfloat16 K1: sampler and contraction in one kernel.
+    """Launch K1: sampler and contraction in one kernel.
 
-    x: (N, H, W, Cin) CUDA bfloat16; head: (N, Ho, Wo, 3*K*G) bfloat16;
-    flows (N, Ho, Wo, 2) float32; weight (128, Cin, kh, kw); bias (128,) or
-    None; operands: conv_operands(weight, bias, torch.bfloat16), made here
-    when None. Returns (N, Ho, Wo, 128) bfloat16. Shapes outside
-    check_fused_shapes' contract raise."""
+    x: (N, H, W, Cin) CUDA bfloat16 or float32; head: (N, Ho, Wo, 3*K*G)
+    of x's dtype; flows (N, Ho, Wo, 2) float32; weight (128, Cin, kh, kw);
+    bias (128,) or None; operands: conv_operands(weight, bias, x.dtype),
+    made here when None. Returns (N, Ho, Wo, 128) of x's dtype. Shapes
+    outside check_fused_shapes' contract raise."""
     x, head = _aligned(x.contiguous(), 16), _aligned(head.contiguous(), 8)
     flow_1 = _aligned(flow_1.float().contiguous(), 8)
     flow_2 = _aligned(flow_2.float().contiguous(), 8)
     check_cuda_inputs("deform_conv_fused", x, head, flow_1, flow_2)
-    if x.dtype != torch.bfloat16 or head.dtype != torch.bfloat16:
+    if x.dtype not in FUSED_CHUNK or head.dtype != x.dtype:
         raise ValueError(f"deform_conv_fused: x {x.dtype} / head "
-                         f"{head.dtype} must be bfloat16")
+                         f"{head.dtype} must both be bfloat16 or float32")
     cout, _, kh, kw = weight.shape
     n, h, w, cin, ho, wo, g, k = _conv_geometry(
         "deform_conv_fused", x, head, flow_1, flow_2, kh, kw, padding)
     check_fused_shapes(x, head, weight)
     if operands is None:
-        operands = conv_operands(weight, bias, torch.bfloat16)
+        operands = conv_operands(weight, bias, x.dtype)
     wk, b32 = operands
     if wk.device != x.device or b32.device != x.device:
         raise ValueError("deform_conv_fused: the weight and bias must be on "
                          f"x's device {x.device}")
-    out = torch.empty((n, ho, wo, cout), dtype=torch.bfloat16,
-                      device=x.device)
-    err = build.library().e2fgvi_deform_conv_fused(
-        x.data_ptr(), head.data_ptr(), flow_1.data_ptr(), flow_2.data_ptr(),
-        wk.data_ptr(), b32.data_ptr(), out.data_ptr(), n, h, w, cin, ho, wo,
-        g, k, kw, padding, float(max_residue), *build.stream_args(x))
+    if wk.dtype != x.dtype:
+        raise ValueError(f"deform_conv_fused: operands of {wk.dtype} for x "
+                         f"of {x.dtype}")
+    out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    err = build.library().e2fgvi_deform_conv(
+        _DTYPES[x.dtype], x.data_ptr(), head.data_ptr(), flow_1.data_ptr(),
+        flow_2.data_ptr(), wk.data_ptr(), b32.data_ptr(), out.data_ptr(), n,
+        h, w, cin, ho, wo, g, k, kw, padding, float(max_residue),
+        *build.stream_args(x))
     build.check(err, "deform_conv_fused")
-    LAUNCHES["deform_im2col"] += 1
+    LAUNCHES["deform_conv"] += 1
     return out
 
 
@@ -328,24 +319,13 @@ def modulated_deform_conv2d_head(x, head, flow_1, flow_2, weight, bias=None,
     Returns (N, Ho, Wo, Cout) in x's dtype. operands: conv_operands(weight,
     bias, x.dtype), made here when None.
 
-    CPU tensors take the plain version. On CUDA, bfloat16 runs the fused
-    kernel; float32 writes the im2col matrix and one GEMM applies the
-    weight, reordered to (g, k, cg) x Cout, as the JAX package also
-    contracts outside its kernel."""
+    CPU tensors take the plain version; CUDA tensors the fused kernel
+    (deform_conv_fused), whose contract other shapes fail."""
     if x.device.type == "cpu":
         return deform_conv_head_plain(x, head, flow_1, flow_2, weight, bias,
                                       max_residue, padding)
-    if x.dtype == torch.bfloat16:
-        return deform_conv_fused(x, head, flow_1, flow_2, weight, bias,
-                                 max_residue, padding, operands)
-    cout, _, kh, kw = weight.shape
-    col = deform_im2col(x, head, flow_1, flow_2, kh, kw, padding,
-                        max_residue)
-    w_r, b = operands or conv_operands(weight, bias, x.dtype,
-                                       head.shape[-1] // (3 * kh * kw))
-    out = col @ w_r if b is None else torch.addmm(b, col, w_r)
-    n = x.shape[0]
-    return out.reshape(n, head.shape[1], head.shape[2], cout)
+    return deform_conv_fused(x, head, flow_1, flow_2, weight, bias,
+                             max_residue, padding, operands)
 
 
 def flow_warp(x, flow):

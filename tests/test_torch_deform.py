@@ -126,7 +126,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(rng):
 
 # ---------------------------------------------------------------------------
 # The bf16 K1 (csrc/deform.cu, namespace fused): its tile schedule emulated
-# in float32, and the wrapper's contract
+# in float32
 # ---------------------------------------------------------------------------
 
 def _bf16(a):
@@ -200,9 +200,89 @@ def test_k1_fused_schedule_matches_banded_head_interpret(rng):
     assert (got - want).abs().max() / want.abs().max() <= 1e-2
 
 
+# ---------------------------------------------------------------------------
+# The float32 K1 (csrc/deform.cu, namespace fused_tf32): its 3xTF32 tile
+# schedule emulated in torch
+# ---------------------------------------------------------------------------
+
+def _emulate_tf32_kernel(x, head, f1, f2, weight, bias, passes=3, bm=128,
+                         bk=32):
+    """The float32 K1's schedule: BM-row pixel tiles, the last one ragged
+    (its rows past M sampled as zeros and not stored); 32-wide K chunks of
+    2 (g, tap) slices in the column order (g*K + k)*CG + c; A (the masked
+    samples) split into tf32 big and small by bit operations
+    (split_tf32), B the wrapper's own split weight; per chunk big*big into
+    one accumulator, small*big + big*small into another; the f32 bias in
+    the epilogue. passes=1: big*big alone, one TF32 pass."""
+    a = deform.deform_columns_plain(x, head, f1, f2)
+    a_big, a_small = deform.split_tf32(a)
+    (w_big, w_small), b32 = deform.conv_operands(weight, bias, torch.float32)
+    m, ktot = a.shape
+    cout = w_big.shape[0]
+    assert ktot % bk == 0 and w_big.shape == (deform.FUSED_COUT, ktot)
+    out = torch.empty((m, cout))
+    for t0 in range(0, m, bm):
+        rows = min(bm, m - t0)
+        tb, ts = torch.zeros((bm, ktot)), torch.zeros((bm, ktot))
+        tb[:rows], ts[:rows] = a_big[t0:t0 + rows], a_small[t0:t0 + rows]
+        hi, lo = torch.zeros((bm, cout)), torch.zeros((bm, cout))
+        for k0 in range(0, ktot, bk):
+            ks = slice(k0, k0 + bk)
+            hi += tb[:, ks] @ w_big[:, ks].T
+            if passes == 3:
+                lo += ts[:, ks] @ w_big[:, ks].T + tb[:, ks] @ w_small[:, ks].T
+        out[t0:t0 + rows] = (hi + lo + b32)[:rows]
+    return out.reshape(*x.shape[:3], cout)
+
+
+def _tf32_inputs(rng, n, h, w, g):
+    """float32 inputs at the fused kernel's widths (CG 16, Cout 128), flows
+    that push samples outside the image; the weight HWIO."""
+    def draw(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std)
+                                .astype(np.float32))
+    cin = 16 * g
+    x, head = draw(n, h, w, cin), draw(n, h, w, 27 * g, std=0.5)
+    f1, f2 = draw(n, h, w, 2, std=3.0), draw(n, h, w, 2, std=3.0)
+    f2[:, :, -3:, 0] += 25.0
+    return x, head, f1, f2, draw(3, 3, cin, 128, std=0.05), draw(128, std=0.1)
+
+
+@pytest.mark.parametrize("groups", [4, 2])
+def test_k1_tf32_schedule_matches_plain(rng, groups):
+    """N=2 of 13x21: M = 546 pixels, 4 whole tiles and a ragged one of 34
+    rows; G=4: 18 K chunks, G=2: 9 (G*K = 18, whole 32-wide chunks but no
+    64-wide ones). Against the plain version: 3xTF32 within 2e-5 (~1e-6
+    here, float32 sums in another order over the same samples), one TF32
+    pass well outside it (~2^-11 of each product)."""
+    x, head, f1, f2, wgt, b = _tf32_inputs(rng, 2, 13, 21, groups)
+    w = wgt.permute(3, 2, 0, 1).contiguous()
+    want = deform.deform_conv_head_plain(x, head, f1, f2, w, b)
+    got = _emulate_tf32_kernel(x, head, f1, f2, w, b)
+    one = _emulate_tf32_kernel(x, head, f1, f2, w, b, passes=1)
+    err, err1 = ((z - want).abs().max().item() for z in (got, one))
+    assert torch.isfinite(got).all()
+    assert err <= 2e-5 and err1 > 2e-5, (err, err1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_tf32_schedule_matches_banded_head_interpret(rng):
+    """The emulated float32 schedule against the JAX head-fused DCN (the
+    banded Pallas sampler in interpret mode, a band wide enough to be
+    exact) on N=1 of 13x21: M = 273, two tiles and a ragged one of 17
+    rows."""
+    x, head, f1, f2, wgt, b = _tf32_inputs(rng, 1, 13, 21, 4)
+    want, _ = modulated_deform_conv2d_banded_head(
+        *(jnp.asarray(t.numpy()) for t in (x, head, f1, f2, wgt, b)),
+        band=64, max_residue=10.0, interpret=True)
+    got = _emulate_tf32_kernel(x, head, f1, f2,
+                               wgt.permute(3, 2, 0, 1).contiguous(), b)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_fused_weight_is_the_im2col_column_order(rng):
     """fused_weight(w)[o, (g*K + k)*16 + c] == w[o, g*16 + c, ky, kx]: the
-    column order of deform_columns_plain and the f32 im2col kernel."""
+    column order of deform_columns_plain and of both kernels' A tiles."""
     w = torch.from_numpy(rng.standard_normal((128, 64, 3, 3))
                          .astype(np.float32))
     wk = deform.fused_weight(w)
@@ -218,22 +298,45 @@ def test_fused_weight_is_the_im2col_column_order(rng):
         atol=1e-4)
 
 
-# (Cin, head groups, Cout, kernel): each breaks one term of the contract
-_BAD_FUSED = {"cg8": (64, 8, 128, 3, "CG == 16"),
-              "cout16": (64, 4, 16, 3, "Cout == 128"),
-              "partial_chunk": (32, 2, 128, 3, "multiple of 4")}
+# (Cin, head groups, Cout, kernel, dtype): each breaks one term of the
+# contract; G*K = 18 is whole 32-wide float32 chunks but no whole 64-wide
+# bfloat16 ones, G*K = 9 neither
+_BAD_FUSED = {"cg8": (64, 8, 128, 3, torch.bfloat16, "CG == 16"),
+              "cout16": (64, 4, 16, 3, torch.bfloat16, "Cout == 128"),
+              "partial_chunk": (32, 2, 128, 3, torch.bfloat16,
+                                "multiple of 4"),
+              "cg8_f32": (64, 8, 128, 3, torch.float32, "CG == 16"),
+              "cout16_f32": (64, 4, 16, 3, torch.float32, "Cout == 128"),
+              "odd_gk_f32": (16, 1, 128, 3, torch.float32, "even")}
 
 
 @pytest.mark.parametrize("case", list(_BAD_FUSED))
 def test_fused_shape_checks_name_the_contract(case):
-    cin, g, cout, kk, words = _BAD_FUSED[case]
-    x = torch.zeros((1, 4, 5, cin))
-    head = torch.zeros((1, 4, 5, 3 * kk * kk * g))
+    cin, g, cout, kk, dtype, words = _BAD_FUSED[case]
+    x = torch.zeros((1, 4, 5, cin), dtype=dtype)
+    head = torch.zeros((1, 4, 5, 3 * kk * kk * g), dtype=dtype)
     with pytest.raises(ValueError, match=words):
         deform.check_fused_shapes(x, head, torch.zeros((cout, cin, kk, kk)))
-    deform.check_fused_shapes(torch.zeros((1, 4, 5, 256)),
-                              torch.zeros((1, 4, 5, 432)),
-                              torch.zeros((128, 256, 3, 3)))
+    for dt in (torch.bfloat16, torch.float32):
+        deform.check_fused_shapes(torch.zeros((1, 4, 5, 256), dtype=dt),
+                                  torch.zeros((1, 4, 5, 432), dtype=dt),
+                                  torch.zeros((128, 256, 3, 3)))
+    deform.check_fused_shapes(torch.zeros((1, 4, 5, 32)),
+                              torch.zeros((1, 4, 5, 54)),
+                              torch.zeros((128, 32, 3, 3)))
+
+
+def test_fused_shape_checks_f32_image_size():
+    """The float32 K1 reads corners by 32-bit offsets: an image of x of
+    2^31 elements raises (shapes only, on the meta device), one just under
+    passes."""
+    def shapes(h):
+        return (torch.empty((1, h, 2 ** 11, 32), device="meta"),
+                torch.empty((1, h, 2 ** 11, 54), device="meta"),
+                torch.empty((128, 32, 3, 3), device="meta"))
+    with pytest.raises(ValueError, match="2\\^31"):
+        deform.check_fused_shapes(*shapes(2 ** 15))
+    deform.check_fused_shapes(*shapes(2 ** 15 - 1))
 
 
 def test_k2_load_width_follows_alignment():
@@ -257,30 +360,57 @@ def test_k2_load_width_follows_alignment():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", [4, 8])
 def test_conv_operands_are_the_contraction_order(rng, dtype, groups):
-    """conv_operands, made once per pass by feat_prop: in float32 the GEMM's
-    (G*K*CG, Cout) with column order (g*K + k)*CG + c at any CG, element
-    for element the reorder the wrapper made per call before; in bfloat16
-    the fused kernel's (Cout, K) weight and the bias rounded to bf16 in
-    float32 (zeros without one)."""
+    """conv_operands, made once per pass by feat_prop: the fused kernel's B
+    operand K-major with column order (g*K + k)*CG + c at any CG (in
+    bfloat16 the (Cout, K) weight, in float32 (2, Cout, K), its tf32 big
+    and small parts), and the bias in float32 (rounded to bf16 first in
+    bfloat16; zeros without one)."""
     w = torch.from_numpy(rng.standard_normal((128, 64, 3, 3))
                          .astype(np.float32)).to(dtype)
     b = torch.from_numpy(rng.standard_normal(128).astype(np.float32))
+    wk, bk = deform.conv_operands(w, b, dtype, groups)
+    cg = 64 // groups
+    want = w.reshape(128, groups, cg, 9).permute(0, 1, 3, 2)
+    want = want.reshape(128, groups * 9 * cg)
+    assert wk.is_contiguous() and wk.dtype == dtype
+    assert bk.dtype == torch.float32
+    assert torch.equal(bk, b.to(dtype).float())
+    assert torch.equal(deform.conv_operands(w, None, dtype, groups).bias,
+                       torch.zeros(128))
     if dtype == torch.float32:
-        wk, bk = deform.conv_operands(w, b, dtype, groups)
-        cg = 64 // groups
-        want = w.reshape(128, groups, cg, 9).permute(1, 3, 2, 0)
-        assert wk.is_contiguous()
-        assert torch.equal(wk, want.reshape(groups * 9 * cg, 128))
-        assert torch.equal(bk, b)
-        assert deform.conv_operands(w, None, dtype, groups).bias is None
+        assert wk.shape == (2, 128, groups * 9 * cg)
+        big, small = deform.split_tf32(want)
+        assert torch.equal(wk[0], big) and torch.equal(wk[1], small)
+        err = (wk[0].double() + wk[1].double() - want.double()).abs()
+        assert (err <= 2.0 ** -22 * want.double().abs()).all()
     else:
-        wk, bk = deform.conv_operands(w, b, dtype)
-        assert wk.dtype == torch.bfloat16
-        assert torch.equal(wk, deform.fused_weight(w))
-        assert bk.dtype == torch.float32
-        assert torch.equal(bk, b.bfloat16().float())
-        assert torch.equal(deform.conv_operands(w, None, dtype).bias,
-                           torch.zeros(128))
+        assert torch.equal(wk, want)
+        assert torch.equal(wk, deform.fused_weight(w, groups=groups))
+
+
+def test_split_tf32_rounds_to_nearest_tf32(rng):
+    """The float32 K1's operand split: big and small have their 13 low
+    mantissa bits zero, big is the nearest tf32 (ties away from zero), and
+    big + small is x to within 2^-22 |x|, over 60 octaves and both signs;
+    zero splits into zeros."""
+    x = (rng.standard_normal(4096) * 2.0 ** rng.integers(-30, 30, 4096))
+    x = torch.from_numpy(np.concatenate([x, [0.0, 1.0, -1.0]])
+                         .astype(np.float32))
+    big, small = deform.split_tf32(x)
+    for part in (big, small):
+        assert part.dtype == torch.float32
+        assert (part.view(torch.int32) & 0x1FFF == 0).all()
+    ulp = 2.0 ** (torch.floor(torch.log2(x.double().abs().clamp_min(1e-38)))
+                  - 10)
+    assert ((x.double() - big.double()).abs() <= ulp / 2).all()
+    err = (x.double() - big.double() - small.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+    assert big[-3] == 0 and small[-3] == 0
+    assert big[-2] == 1 and small[-2] == 0
+    # 1 + 2^-11 is a tie between two tf32 values: away from zero
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert deform.split_tf32(tie)[0].tolist() == [1 + 2.0 ** -10,
+                                                   -(1 + 2.0 ** -10)]
 
 
 def test_aligned_copies_only_misaligned_views():

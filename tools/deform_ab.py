@@ -3,7 +3,7 @@
 card.
 
     python3 tools/deform_ab.py --root <tree> --tag <name> [--out <dir>]
-                               [--parts deform gather serve_f32]
+                               [--parts deform gather accuracy serve_f32]
     python3 tools/deform_ab.py --compare <dir>/<a>.pt <dir>/<b>.pt
     python3 tools/deform_ab.py --summarize <tree>_<pair>.jsonl ...
 
@@ -16,9 +16,9 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
   at base (60x108 maps) and 864x480 (120x216), B=14, in float32 and
   bfloat16: K1 whole (modulated_deform_conv2d_head), with
   chip_smoke.k1_gemm_and_peak: the contraction alone (cuBLAS on a random
-  M x 2304 matrix), the float32 im2col kernel alone (bfloat16 too in a
-  tree whose bf16 K1 still writes an im2col matrix) and the peak device
-  memory of one call; K2 on the pair of 128-channel feature warps (2B
+  M x 2304 matrix) and the peak device memory of one call; the im2col
+  kernel alone in a tree whose bfloat16 K1 still writes an im2col matrix;
+  K2 on the pair of 128-channel feature warps (2B
   maps) beside F.grid_sample, and on the 2-channel flow composition
   (float32); K3 at base B=14;
 - `gather` (default), on experiments.exp_gather.make_inputs (9 taps of a
@@ -29,6 +29,13 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
   (`split`), as is K2's base float32 pair; and the host microseconds a
   call of the launch path's pieces (build.stream_args, check_cuda_inputs,
   a one-row E3 call);
+- `accuracy`: the float32 K1 on chip_smoke.py's inputs at base, 864x480
+  and 1296x720 (B=14): max |delta| of the kernel and of the plain version
+  from K1 of the same inputs in float64 throughout (k1_float64: offsets,
+  sample positions, samples and the contraction), which holds each to
+  the exact function of its float32 inputs. The kernel's distance
+  from the plain version and one TF32 pass's are in chip_smoke.py's
+  kernels line (max_abs_err, max_abs_err_1xtf32);
 - `serve_f32`: chip_smoke.serve in float32 at the inpaint CLI's defaults
   (max_batch 4) with the golden weights: base 432x240, 2 videos of 70
   frames (chip_smoke phase 5), and HQ 864x480, one of 20 (phase 7):
@@ -37,8 +44,11 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
 Every part also prints the SASS opcode histogram of its kernels
 (cuobjdump): load and store opcodes in full, the rest as a digest. The
 outputs of K1 and K2 at base and of E3 and E4 go to <dir>/<tag>.pt. The
-second form says which saved outputs are bit-equal between two trees. The
-third form reads the first form's output, saved as <tree>_<pair>.jsonl a
+second form says which saved outputs are bit-equal between two trees, and
+whether the float32 K1's, which need not be (its 3xTF32 contraction sums
+in another order than a float32 GEMM), are within
+chip_smoke.F32_MAX_ABS's bar for K1 against its plain version. The third
+form reads the first form's output, saved as <tree>_<pair>.jsonl a
 run, and prints each tree's medians and, pair by pair, how often each ms
 was below its library call's (same run) and below the other tree's (same
 pair). Every result line is JSON; the card's name and power limit come
@@ -57,14 +67,19 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"base": (14, 60, 108), "864x480": (14, 120, 216)}
-SASS = {"deform": ("deform_im2col_kernel", "flow_warp_kernel",
-                   "deform_conv_wgmma_kernel", "focal_attention_wgmma_kernel"),
+ACCURACY_SHAPES = {**SHAPES, "1296x720": (14, 180, 324)}
+SASS = {"deform": ("deform_conv_tf32_kernel", "flow_warp_kernel",
+                   "deform_conv_wgmma_kernel", "focal_attention_wgmma_kernel",
+                   "focal_attention_tf32_kernel"),
         "gather": ("row_gather_kernel", "bilinear4", "group_major_kernel"),
-        "serve_f32": ()}
+        "accuracy": ("deform_conv_tf32_kernel",), "serve_f32": ()}
 SPLIT_CALLS = 200
 GATHER_ITERS = 50    # cuda_ms calls a median for the ~0.05 ms gathers
 # (kernel's ms, its library call's ms) keys of a result line
 LIBRARY_KEYS = (("ms", "library_ms"), ("k2_ms", "grid_sample_ms"))
+# saved outputs compared within a max |delta| instead of bit for bit, by
+# the chip_smoke.F32_MAX_ABS entry of their kernel
+TOLERANCE_OF = {"k1_float32": "deform_conv"}
 
 
 def chip_smoke():
@@ -212,6 +227,69 @@ def run_gather(cs, tag, dev, saved):
         torch.cuda.synchronize()
 
 
+def k1_float64(x, head, flow_1, flow_2, weight, bias, max_residue=10.0,
+               padding=1):
+    """K1 (kernels/deform.py deform_conv_head_plain) of float32 inputs in
+    float64 throughout: offsets, mask, sample positions, the bilinear
+    samples and the contraction, one tap at a time. (N, Ho, Wo, Cout)
+    float64."""
+    import torch
+    import torch.nn.functional as F
+    x, head, f1, f2, wt, bias = (t.double() for t in (
+        x, head, flow_1, flow_2, weight, bias))
+    n, h, w, cin = x.shape
+    cout, _, kh, kw = wt.shape
+    _, ho, wo, ch = head.shape
+    k = kh * kw
+    g = ch // (3 * k)
+    cg = cin // g
+    # groups [0, G/2) ride flow_1; flows are (dx, dy), offsets (dy, dx)
+    first = (torch.arange(g, device=x.device) < g // 2)[:, None, None]
+    flow = torch.where(first, f1.flip(-1)[:, :, :, None, None, :],
+                       f2.flip(-1)[:, :, :, None, None, :])
+    off = max_residue * torch.tanh(head[..., :2 * k * g]).reshape(
+        n, ho, wo, g, k, 2) + flow
+    mask = torch.sigmoid(head[..., 2 * k * g:]).reshape(n, ho, wo, g, k)
+    xg = x.reshape(n, h, w, g, cg).permute(0, 3, 4, 1, 2)
+    xg = xg.reshape(n * g, cg, h, w)
+    ys = torch.arange(ho, dtype=torch.float64, device=x.device)[:, None, None]
+    xs = torch.arange(wo, dtype=torch.float64, device=x.device)[None, :, None]
+    w4 = wt.reshape(cout, g, cg, k)
+    out = bias.expand(n, ho, wo, cout).clone()
+    for t in range(k):
+        ky, kx = divmod(t, kw)
+        py = ys - padding + ky + off[..., t, 0]          # (N, Ho, Wo, G)
+        px = xs - padding + kx + off[..., t, 1]
+        grid = torch.stack([2.0 * px / max(w - 1, 1) - 1.0,
+                            2.0 * py / max(h - 1, 1) - 1.0], -1)
+        grid = grid.permute(0, 3, 1, 2, 4).reshape(n * g, ho, wo, 2)
+        samp = F.grid_sample(xg, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True).reshape(n, g, cg, ho, wo)
+        samp = samp * mask[..., t].permute(0, 3, 1, 2)[:, :, None]
+        out += torch.einsum("ngcyx,ogc->nyxo", samp, w4[..., t])
+    return out
+
+
+def run_accuracy(cs, tag, dev, saved):
+    import torch
+    from e2fgvi_tpu_torch.kernels import deform
+    for label, (b, h, w) in ACCURACY_SHAPES.items():
+        flow1, flow2, (x, head, wt, bias), _ = cs.k1k2_inputs(
+            cs._randn_fn(dev), b, h, w)
+        args = (x, head, flow1, flow2, wt, bias)
+        with torch.inference_mode():
+            got = deform.modulated_deform_conv2d_head(*args).double()
+            want = deform.deform_conv_head_plain(*args).double()
+            ref = k1_float64(*args)
+            print(json.dumps({
+                "tag": tag, "shape": label, "kernel": "deform_conv float32",
+                "kernel_vs_f64": float((got - ref).abs().max()),
+                "plain_vs_f64": float((want - ref).abs().max()),
+                "scale": float(ref.abs().max())}), flush=True)
+        del args, x, head, got, want, ref
+        torch.cuda.empty_cache()
+
+
 def run_serve_f32(cs, tag, dev, saved):
     import torch
     from e2fgvi_tpu_torch.utils.timing import StageTimer
@@ -254,7 +332,7 @@ def measure(root, tag, out_dir, parts):
               flush=True)
     saved = {}
     runners = {"deform": run_deform, "gather": run_gather,
-               "serve_f32": run_serve_f32}
+               "accuracy": run_accuracy, "serve_f32": run_serve_f32}
     for p in parts:
         runners[p](cs, tag, dev, saved)
     os.makedirs(out_dir, exist_ok=True)
@@ -264,10 +342,15 @@ def measure(root, tag, out_dir, parts):
 def compare(a, b):
     import torch
     da, db = torch.load(a), torch.load(b)
+    bars = chip_smoke().F32_MAX_ABS
     for k in sorted(set(da) & set(db)):
         d = (da[k].float() - db[k].float()).abs().max().item()
-        print(json.dumps({"compare": k, "bit_equal": torch.equal(da[k], db[k]),
-                          "max_abs_diff": d}), flush=True)
+        same = torch.equal(da[k], db[k])
+        res = {"compare": k, "bit_equal": same, "max_abs_diff": d}
+        if k in TOLERANCE_OF:
+            tol = bars[TOLERANCE_OF[k]]
+            res.update(tolerance=tol, within=d <= tol)
+        print(json.dumps(res), flush=True)
 
 
 def _flat(prefix, d, out):
