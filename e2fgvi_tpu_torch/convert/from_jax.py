@@ -9,6 +9,12 @@ permutation, so a round trip is bit-exact.
 
 Input: the JAX pytree with numpy leaves (np.asarray over the tree).
 Output: {key: float32 torch.Tensor} in the released checkpoint's keys.
+
+Training carries over too: the discriminator (discriminator_state: DHWIO
+conv weights -> OIDHW, the last conv's bias, the spectral-norm vectors u)
+and a JAX TrainState (e2fgvi_tpu/train/step.py:31) as a whole
+(from_jax_train_state: generator, discriminator, the frozen SPyNet, the
+step), so both packages can start training from one state.
 """
 
 import numpy as np
@@ -111,3 +117,29 @@ def from_jax_params(params_np, variant="base") -> dict:
         sd.update(block_state(blk, f"transformer.{i}."))
     sd.update(spynet_state(p["spynet"]))
     return to_torch(sd)
+
+
+def discriminator_state(params_d) -> dict:
+    """JAX discriminator pytree (numpy leaves) -> the port's Discriminator
+    state dict: convs.{i}.weight OIDHW, convs.5.bias, u{i} for the
+    spectral-normalized convs (the last conv's u, unused, is dropped)."""
+    sd = {}
+    for i, conv in enumerate(params_d["convs"]):
+        sd[f"convs.{i}.weight"] = np.asarray(conv["w"]).transpose(4, 3, 0, 1,
+                                                                  2)
+        if "b" in conv:
+            sd[f"convs.{i}.bias"] = np.asarray(conv["b"])
+        else:
+            sd[f"u{i}"] = np.asarray(params_d["u"][i])
+    return to_torch(sd)
+
+
+def from_jax_train_state(state_np, variant="base") -> dict:
+    """A JAX TrainState (numpy leaves) -> {"gen": the generator's state
+    dict, "dis": the discriminator's, "fixed_spynet": the frozen SPyNet's
+    (SPyNet keys), "step": int}. Optimizer moments are not carried."""
+    return {"gen": from_jax_params(state_np.params_g, variant),
+            "dis": discriminator_state(state_np.params_d),
+            "fixed_spynet": to_torch(spynet_state(state_np.fixed_spynet,
+                                                  prefix="")),
+            "step": int(np.asarray(state_np.step))}

@@ -223,7 +223,8 @@ class SlidingWindowInpainter:
             for s in range(0, n_pairs, ENC_CHUNK):
                 pidx = torch.arange(s, min(s + ENC_CHUNK, n_pairs),
                                     device=dev)
-                ff, fb = e2fgvi.spynet_pairs(model, small_all[pidx],
+                ff, fb = e2fgvi.spynet_pairs(model.update_spynet,
+                                             small_all[pidx],
                                              small_all[pidx + 1])
                 ffs.append(ff)
                 fbs.append(fb)

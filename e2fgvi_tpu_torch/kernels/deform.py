@@ -8,8 +8,14 @@ any offset exactly.
 K1 is one kernel in both dtypes, sampler and contraction together
 (deform_conv_fused): wgmma on bf16 for bfloat16, on 3xTF32 for float32.
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
-only then. For CUDA tensors it launches its kernel or raises. Kernels are
-forward-only: an input that requires grad raises. `LAUNCHES` counts the
+only then. For CUDA tensors it launches its kernel or raises. Where grad
+mode is on and an input requires grad, the wrapper goes through an
+autograd Function (DeformConvHead, FlowWarp): the kernel runs forward on
+detached inputs, and the backward recomputes the plain version and returns
+its vector-Jacobian product, as the JAX package's fused attention does
+(e2fgvi_tpu/kernels/fused_attention.py:_bwd); no kernel has a backward of
+its own. The plain versions sample at pixel positions (ops.warp.
+bilinear_sample), as the JAX package's K1 and K2 do. `LAUNCHES` counts the
 kernel launches of each wrapper; "deform_conv" counts K1 in both dtypes.
 
 K1's weight and bias, reordered (and in float32 split) for its contraction
@@ -26,8 +32,8 @@ from typing import NamedTuple
 import torch
 
 from e2fgvi_tpu_torch.kernels import build
+from e2fgvi_tpu_torch.ops.warp import bilinear_sample
 from e2fgvi_tpu_torch.ops.warp import flow_warp as flow_warp_plain
-from e2fgvi_tpu_torch.ops.warp import grid_sample_bilinear
 
 LAUNCHES = {"deform_conv": 0, "flow_warp": 0}
 
@@ -63,7 +69,8 @@ def load_width(nc: int, esize: int, addr: int) -> int:
 
 def check_cuda_inputs(name, *tensors):
     """Raise unless every tensor is a CUDA tensor on one device, contiguous
-    and free of autograd history (the kernels are forward-only)."""
+    and free of autograd history: a kernel launch is forward-only, and
+    gradients go through the wrappers' autograd Functions."""
     dev = tensors[0].get_device()                # -1 on the CPU
     for t in tensors:
         if not t.is_cuda or t.get_device() != dev:
@@ -73,8 +80,12 @@ def check_cuda_inputs(name, *tensors):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.requires_grad:
-            raise RuntimeError(f"{name}: the kernel is forward-only; call "
-                               "it under torch.no_grad()")
+            raise RuntimeError(
+                f"{name}: a kernel launch is forward-only; K1, K2 and K3 "
+                "take inputs that require grad through their wrappers' "
+                "autograd Functions (kernels.deform.DeformConvHead, FlowWarp, "
+                "kernels.focal_attention.FocalAttention), other kernels run "
+                "under torch.no_grad()")
 
 
 # ---------------------------------------------------------------------------
@@ -106,36 +117,37 @@ def offsets_from_head(head, flow_1, flow_2, max_residue=10.0, k=9):
 
 
 def _sample_columns(x, offset, mask, kw, padding):
-    """The masked bilinear samples of DCNv2 in float32, one F.grid_sample
-    per tap: (N, G, K, Ho, Wo, CG)."""
+    """The masked bilinear samples of DCNv2 in float32 at pixel positions,
+    (N, G, K, Ho, Wo, CG): one four-corner gather (ops.warp.
+    bilinear_sample) over every group and tap, as e2fgvi_tpu/ops/dcn.py:
+    modulated_deform_conv2d samples."""
     n, h, w, cin = x.shape
     _, ho, wo, g, k, _ = offset.shape
     cg = cin // g
     dev = x.device
     xg = x.float().reshape(n, h, w, g, cg).permute(0, 3, 1, 2, 4)
     xg = xg.reshape(n * g, h, w, cg)
-    ys = torch.arange(ho, dtype=torch.float32, device=dev)[:, None, None]
-    xs = torch.arange(wo, dtype=torch.float32, device=dev)[None, :, None]
+    taps = torch.arange(k, device=dev)
+    ky, kx = (taps // kw).float(), (taps % kw).float()
+    base_y = torch.arange(ho, dtype=torch.float32, device=dev)[:, None] \
+        - padding + ky                                     # (Ho, K)
+    base_x = torch.arange(wo, dtype=torch.float32, device=dev)[:, None] \
+        - padding + kx                                     # (Wo, K)
     off = offset.float()
-    m = mask.float()
-    cols = []
-    for t in range(k):
-        ky, kx = t // kw, t % kw
-        py = ys - padding + ky + off[..., t, 0]          # (N, Ho, Wo, G)
-        px = xs - padding + kx + off[..., t, 1]
-        gy = 2.0 * py / max(h - 1, 1) - 1.0
-        gx = 2.0 * px / max(w - 1, 1) - 1.0
-        grid = torch.stack([gx, gy], -1).permute(0, 3, 1, 2, 4)
-        samp = grid_sample_bilinear(xg, grid.reshape(n * g, ho, wo, 2))
-        samp = samp.reshape(n, g, ho, wo, cg) \
-            * m[..., t].permute(0, 3, 1, 2)[..., None]
-        cols.append(samp)
-    return torch.stack(cols, 2)
+    py = base_y[None, :, None, None, :] + off[..., 0]      # (N, Ho, Wo, G, K)
+    px = base_x[None, None, :, None, :] + off[..., 1]
+
+    def per_group(p):                                      # (N*G, K*Ho*Wo)
+        return p.permute(0, 3, 4, 1, 2).reshape(n * g, k * ho * wo)
+
+    samp = bilinear_sample(xg, per_group(py), per_group(px))
+    m = mask.float().permute(0, 3, 4, 1, 2)[..., None]     # (N, G, K, Ho, Wo)
+    return samp.reshape(n, g, k, ho, wo, cg) * m
 
 
 def modulated_deform_conv2d(x, offset, mask, weight, bias=None, padding=1):
-    """DCNv2 (stride 1, dilation 1, groups 1) as one F.grid_sample per tap
-    (the form of tests/mmcv_shim.py), computed in float32.
+    """DCNv2 (stride 1, dilation 1, groups 1) in float32: the four-corner
+    samples of every group and tap (_sample_columns), then one contraction.
 
     x: (N, H, W, Cin); offset: (N, Ho, Wo, G, K, 2) (dy, dx) pixels;
     mask: (N, Ho, Wo, G, K); weight: (Cout, Cin, kh, kw).
@@ -309,6 +321,51 @@ def deform_conv_fused(x, head, flow_1, flow_2, weight, bias=None,
     return out
 
 
+def differentiable(*tensors) -> bool:
+    """True where grad mode is on and a tensor requires grad: the wrappers
+    then take their autograd Function, else the kernel directly."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def plain_vjp(ctx, plain, grad, *static):
+    """The backward of a kernel's autograd Function: the plain version
+    recomputed on the saved inputs under grad mode, and its vector-Jacobian
+    product with grad for each input that needs one (None elsewhere, and
+    for the `static` arguments after the saved tensors)."""
+    saved = ctx.saved_tensors
+    ins = [None if t is None else t.detach().requires_grad_(need)
+           for t, need in zip(saved, ctx.needs_input_grad)]
+    wrt = [t for t in ins if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        out = plain(*ins, *static)
+    got = iter(torch.autograd.grad(out, wrt, grad, allow_unused=True))
+    grads = [next(got) if t is not None and t.requires_grad else None
+             for t in ins]
+    return (*grads, *(None,) * (len(ctx.needs_input_grad) - len(saved)))
+
+
+class DeformConvHead(torch.autograd.Function):
+    """K1 with a gradient: forward launches the fused kernel on detached
+    inputs; backward recomputes deform_conv_head_plain and returns its VJP
+    in x, the offset head, both flows, the weight and the bias. `operands`
+    is made from the live weight by the caller on every forward pass."""
+
+    @staticmethod
+    def forward(ctx, x, head, flow_1, flow_2, weight, bias, max_residue,
+                padding, operands):
+        ctx.save_for_backward(x, head, flow_1, flow_2, weight, bias)
+        ctx.static = (max_residue, padding)
+        return deform_conv_fused(
+            x.detach(), head.detach(), flow_1.detach(), flow_2.detach(),
+            weight.detach(), None if bias is None else bias.detach(),
+            max_residue, padding, operands)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(ctx, deform_conv_head_plain, grad, *ctx.static)
+
+
 def modulated_deform_conv2d_head(x, head, flow_1, flow_2, weight, bias=None,
                                  max_residue=10.0, padding=1, operands=None):
     """Head-fused DCNv2 (e2fgvi_tpu kernels/dcn_band.py:650).
@@ -320,12 +377,31 @@ def modulated_deform_conv2d_head(x, head, flow_1, flow_2, weight, bias=None,
     bias, x.dtype), made here when None.
 
     CPU tensors take the plain version; CUDA tensors the fused kernel
-    (deform_conv_fused), whose contract other shapes fail."""
+    (deform_conv_fused), whose contract other shapes fail, through
+    DeformConvHead where an input requires grad."""
     if x.device.type == "cpu":
         return deform_conv_head_plain(x, head, flow_1, flow_2, weight, bias,
                                       max_residue, padding)
+    if differentiable(x, head, flow_1, flow_2, weight, bias):
+        return DeformConvHead.apply(x, head, flow_1, flow_2, weight, bias,
+                                    max_residue, padding, operands)
     return deform_conv_fused(x, head, flow_1, flow_2, weight, bias,
                              max_residue, padding, operands)
+
+
+class FlowWarp(torch.autograd.Function):
+    """K2 with a gradient: forward launches the kernel on detached inputs;
+    backward recomputes ops.warp.flow_warp and returns its VJP in x and the
+    flow."""
+
+    @staticmethod
+    def forward(ctx, x, flow):
+        ctx.save_for_backward(x, flow)
+        return flow_warp_kernel(x.detach(), flow.detach())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(ctx, flow_warp_plain, grad)
 
 
 def flow_warp(x, flow):
@@ -333,11 +409,19 @@ def flow_warp(x, flow):
     (e2fgvi_tpu kernels/dcn_band.py:434 and ops/warp.py:53).
 
     x: (N, H, W, C) float32 or bfloat16; flow: (N, H, W, 2) (dx, dy).
-    CPU tensors take ops.warp.flow_warp; CUDA tensors launch K2, whose
-    threads take 16 bytes of channels each (fewer where C is not a multiple)
-    in loads as wide as x's alignment allows."""
+    CPU tensors take ops.warp.flow_warp; CUDA tensors launch K2
+    (flow_warp_kernel), through FlowWarp where an input requires grad."""
     if x.is_cpu:
         return flow_warp_plain(x, flow)
+    if differentiable(x, flow):
+        return FlowWarp.apply(x, flow)
+    return flow_warp_kernel(x, flow)
+
+
+def flow_warp_kernel(x, flow):
+    """Launch K2 on CUDA tensors: threads take 16 bytes of channels each
+    (fewer where C is not a multiple) in loads as wide as x's alignment
+    allows."""
     x = x.contiguous()
     flow = flow.float().contiguous()
     check_cuda_inputs("flow_warp", x, flow)

@@ -9,15 +9,19 @@ builds it with one gather per k and v), and one float32 bias row per
 no padding; the kernels mask ragged tiles themselves.
 
 The wrapper takes the plain version for tensors on the CPU, and only then.
-For CUDA tensors it launches the kernel or raises. The kernel is
-forward-only. `LAUNCHES` counts its launches.
+For CUDA tensors it launches the kernel or raises. Where grad mode is on
+and q, k or v requires grad, it goes through FocalAttention: the kernel
+runs forward, the backward recomputes the plain version (the JAX kernel's
+_bwd recomputes through its XLA reference the same way). `LAUNCHES` counts
+its launches.
 """
 
 import torch
 import torch.nn.functional as F
 
 from e2fgvi_tpu_torch.kernels import build
-from e2fgvi_tpu_torch.kernels.deform import check_cuda_inputs
+from e2fgvi_tpu_torch.kernels.deform import (check_cuda_inputs,
+                                             differentiable, plain_vjp)
 
 LAUNCHES = {"focal_attention": 0}
 
@@ -52,13 +56,39 @@ def padded_bias(bias):
     return F.pad(bias.float(), (0, ld - nk), value=float("-inf"))
 
 
+class FocalAttention(torch.autograd.Function):
+    """K3 with a gradient in q, k and v (the bias, made from the masks,
+    takes none): forward launches the kernel on detached inputs; backward
+    recomputes focal_attention_plain and returns its VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, b, heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.static = (b, heads)
+        return focal_attention_kernel(q.detach(), k.detach(), v.detach(),
+                                      bias.detach(), b, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return plain_vjp(ctx, focal_attention_plain, grad, *ctx.static)
+
+
 def focal_attention(q, k, v, bias, b, heads):
     """softmax over the key panel with per-key bias, times v.
 
     Shapes as in focal_attention_plain; hd must be 128 on CUDA. q, k and v
-    share one dtype (float32 or bfloat16); the bias is float32."""
+    share one dtype (float32 or bfloat16); the bias is float32. CPU tensors
+    take the plain version; CUDA tensors the kernel, through FocalAttention
+    where an input requires grad."""
     if q.device.type == "cpu":
         return focal_attention_plain(q, k, v, bias, b, heads)
+    if differentiable(q, k, v, bias):
+        return FocalAttention.apply(q, k, v, bias, b, heads)
+    return focal_attention_kernel(q, k, v, bias, b, heads)
+
+
+def focal_attention_kernel(q, k, v, bias, b, heads):
+    """Launch K3 on CUDA tensors (shapes as in focal_attention_plain)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     panels, nq, hd = q.shape
     nk = k.shape[1]

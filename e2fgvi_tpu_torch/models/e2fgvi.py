@@ -155,6 +155,12 @@ class Generator(nn.Module):
         self.update_spynet.init_weights(gen)
         return self
 
+    def forward(self, masked_frames, num_local_frames, remat=False):
+        """generator_forward on this model: the entry DistributedDataParallel
+        wraps for training."""
+        return generator_forward(self, masked_frames, num_local_frames,
+                                 remat)
+
     def decode(self, x):
         """(B*T, H/4, W/4, 128) -> (B*T, H, W, 3), before tanh. Frames go
         through in chunks whose widest activation (64 channels at full
@@ -188,32 +194,34 @@ def load_reference_state_dict(model: Generator, sd: dict):
     return model.load_state_dict(keep, strict=True)
 
 
-def spynet_pairs(model, small_pairs_a, small_pairs_b):
+def spynet_pairs(flow_net, small_pairs_a, small_pairs_b):
     """Flows a->b and b->a of quarter-res frame pairs (N, hs, ws, 3) in
-    [0, 1], both directions in one batch. Returns (forward, backward),
-    each (N, hs, ws, 2) float32."""
+    [0, 1] by the SPyNet `flow_net` (a generator's update_spynet, or
+    training's frozen copy), both directions in one batch. Returns
+    (forward, backward), each (N, hs, ws, 2) float32."""
     n = small_pairs_a.shape[0]
-    both = model.update_spynet(torch.cat([small_pairs_a, small_pairs_b], 0),
-                               torch.cat([small_pairs_b, small_pairs_a], 0))
+    both = flow_net(torch.cat([small_pairs_a, small_pairs_b], 0),
+                    torch.cat([small_pairs_b, small_pairs_a], 0))
     return both[:n], both[n:]
 
 
-def forward_bidirect_flow(model, masked_local_frames):
+def forward_bidirect_flow(flow_net, masked_local_frames):
     """(B, L, H, W, 3) in [0, 1] -> (flows_forward, flows_backward), each
-    (B, L-1, H/4, W/4, 2) (reference model/e2fgvi.py:210-234)."""
+    (B, L-1, H/4, W/4, 2), by the SPyNet `flow_net` (spynet_pairs;
+    reference model/e2fgvi.py:210-234)."""
     b, lt, h, w, _ = masked_local_frames.shape
     small = resize_scale_quarter(masked_local_frames.reshape(b * lt, h, w, 3))
     hs, ws = small.shape[1], small.shape[2]
     small = small.reshape(b, lt, hs, ws, 3)
     f1 = small[:, :-1].reshape(-1, hs, ws, 3)
     f2 = small[:, 1:].reshape(-1, hs, ws, 3)
-    ff, fb = spynet_pairs(model, f1, f2)
+    ff, fb = spynet_pairs(flow_net, f1, f2)
     return (ff.reshape(b, lt - 1, hs, ws, 2),
             fb.reshape(b, lt - 1, hs, ws, 2))
 
 
 def window_stage(model, feat, pred_flows, num_local_frames, num_out=None,
-                 valid_local=None, frame_valid=None, mark=None):
+                 valid_local=None, frame_valid=None, mark=None, remat=False):
     """Everything downstream of the encoder and SPyNet for a batch of
     windows: propagation, soft split, transformer, soft comp, decode.
 
@@ -224,6 +232,8 @@ def window_stage(model, feat, pred_flows, num_local_frames, num_out=None,
     windows; frame_valid: optional (B, T) bool frame validity.
     mark: optional callable, called with a stage name as each of
     'feat_prop', 'transformer' and 'decode' ends (stage timing).
+    remat: recompute each propagation step and transformer block in the
+    backward pass (training; off for serving).
     Returns (B, num_out, H, W, 3) tanh output in [-1, 1]."""
     lt = num_local_frames
     b, t, hq, wq, c = feat.shape
@@ -231,7 +241,7 @@ def window_stage(model, feat, pred_flows, num_local_frames, num_out=None,
 
     local_feat = feat_prop.bidirectional_propagation(
         model.feat_prop_module, feat[:, :lt], pred_flows[0], pred_flows[1],
-        valid_len=valid_local)
+        valid_len=valid_local, remat=remat)
     enc_feat = torch.cat([local_feat, feat[:, lt:]], 1)
     if mark:
         mark("feat_prop")
@@ -241,7 +251,7 @@ def window_stage(model, feat, pred_flows, num_local_frames, num_out=None,
                                b)
     tokens = tfocal.transformer_stack(model.transformer, tokens, output_size,
                                       NUM_HEADS, WINDOW_SIZE,
-                                      frame_valid=frame_valid)
+                                      frame_valid=frame_valid, remat=remat)
     trans_feat = tfocal.soft_comp(model.sc, tokens[:, :n_out], n_out,
                                   output_size)
     out_feat = enc_feat[:, :n_out] + trans_feat.reshape(b, n_out, hq, wq, c)
@@ -255,15 +265,17 @@ def window_stage(model, feat, pred_flows, num_local_frames, num_out=None,
     return out
 
 
-def generator_forward(model, masked_frames, num_local_frames):
+def generator_forward(model, masked_frames, num_local_frames, remat=False):
     """masked_frames: (B, T, H, W, 3) in [-1, 1], local frames first.
-    Returns ((B*T, H, W, 3) tanh output, (flows_forward, flows_backward))."""
+    Returns ((B*T, H, W, 3) tanh output, (flows_forward, flows_backward)),
+    differentiable where grad mode is on (e2fgvi_tpu/models/e2fgvi.py:238).
+    remat: see window_stage."""
     lt = num_local_frames
     b, t, h, w, _ = masked_frames.shape
-    pred_flows = forward_bidirect_flow(model,
+    pred_flows = forward_bidirect_flow(model.update_spynet,
                                        (masked_frames[:, :lt] + 1.0) / 2.0)
     enc_feat = model.encoder(masked_frames.reshape(b * t, h, w, 3))
     hq, wq, c = enc_feat.shape[1:]
     enc_feat = enc_feat.reshape(b, t, hq, wq, c)
-    out = window_stage(model, enc_feat, pred_flows, lt)
+    out = window_stage(model, enc_feat, pred_flows, lt, remat=remat)
     return out.reshape(b * t, h, w, 3), pred_flows

@@ -12,6 +12,7 @@ feat_prop_module.backbone.{backward_,forward_}, feat_prop_module.fusion.
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from e2fgvi_tpu_torch.kernels.deform import (conv_operands, flow_warp,
                                              modulated_deform_conv2d_head)
@@ -88,7 +89,8 @@ class FeatPropModule(nn.Module):
 
 
 def bidirectional_propagation(module, x, flows_backward_branch,
-                              flows_forward_branch, valid_len=None):
+                              flows_forward_branch, valid_len=None,
+                              remat=False):
     """Propagate features both ways and fuse (e2fgvi_tpu feat_prop.py:137).
 
     The flow index of each step is the step counter i-1 / i-2 for both
@@ -100,6 +102,9 @@ def bidirectional_propagation(module, x, flows_backward_branch,
     end-padded window. The backward pass meets the padding first, so its
     state is zeroed at each element's first real step and its second-order
     state at the second (the reference's cold start).
+    remat: recompute each propagation step in the backward pass
+    (torch.utils.checkpoint), as the JAX package's training does
+    (feat_prop.py:279-283): the steps' DCN residuals are not kept.
     Returns (B, T, H, W, C): fused propagated features + x."""
     b, t, h, w, c = x.shape
     first_real_step = None
@@ -118,12 +123,8 @@ def bidirectional_propagation(module, x, flows_backward_branch,
             flows = flows_forward_branch
         masked = first_real_step is not None and direction == "backward"
 
-        cat0 = [spatial[:, 0], zeros]
-        if direction == "forward":
-            cat0.insert(1, feats["backward"][0])
-        outs = [module._backbone(direction, torch.cat(cat0, -1), zeros)]
-        prev1, prev2 = outs[0], zeros
-        for i in range(1, t):
+        def step(i, prev1, prev2, cur, bwd, direction=direction,
+                 align=align, operands=operands, flows=flows, masked=masked):
             flow_n1 = flows[:, i - 1].float()
             f2 = flows[:, max(i - 2, 0)].float()
             use2 = torch.full((b,), float(i > 1), device=x.device)
@@ -135,7 +136,7 @@ def bidirectional_propagation(module, x, flows_backward_branch,
             # both 128-channel feature warps in one launch
             both = flow_warp(torch.cat([prev1, feat_n2], 0),
                              torch.cat([flow_n1, flow_n2], 0))
-            cond = torch.cat([both[:b], spatial[:, i], both[b:]], -1)
+            cond = torch.cat([both[:b], cur, both[b:]], -1)
             stacked = torch.cat([prev1, feat_n2], -1)
             aligned = align(stacked, cond, flow_n1, flow_n2, operands)
             if masked:
@@ -143,10 +144,23 @@ def bidirectional_propagation(module, x, flows_backward_branch,
                 first = (first_real_step == i)[:, None, None, None]
                 aligned = torch.where(first, torch.zeros_like(aligned),
                                       aligned)
-            cat = [spatial[:, i], aligned]
-            if direction == "forward":
-                cat.insert(1, feats["backward"][i])
-            out = module._backbone(direction, torch.cat(cat, -1), aligned)
+            cat = [cur, aligned]
+            if bwd is not None:
+                cat.insert(1, bwd)
+            return module._backbone(direction, torch.cat(cat, -1), aligned)
+
+        cat0 = [spatial[:, 0], zeros]
+        if direction == "forward":
+            cat0.insert(1, feats["backward"][0])
+        outs = [module._backbone(direction, torch.cat(cat0, -1), zeros)]
+        prev1, prev2 = outs[0], zeros
+        for i in range(1, t):
+            bwd = feats["backward"][i] if direction == "forward" else None
+            if remat:
+                out = checkpoint(step, i, prev1, prev2, spatial[:, i], bwd,
+                                 use_reentrant=False)
+            else:
+                out = step(i, prev1, prev2, spatial[:, i], bwd)
             prev1, prev2 = out, prev1
             outs.append(out)
         if direction == "backward":

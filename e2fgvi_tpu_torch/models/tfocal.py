@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from e2fgvi_tpu_torch.kernels.focal_attention import focal_attention
 from e2fgvi_tpu_torch.ops.convs import conv2d, gelu, layer_norm, linear
@@ -439,8 +440,16 @@ def transformer_block(block, x, output_size, num_heads=4,
 
 
 def transformer_stack(blocks, x, output_size, num_heads=4,
-                      window_size=(5, 9), frame_valid=None):
+                      window_size=(5, 9), frame_valid=None, remat=False):
+    """The blocks in order. remat: recompute each block in the backward
+    pass (torch.utils.checkpoint), as the JAX package's training does
+    (tfocal.py:846)."""
     for block in blocks:
-        x = transformer_block(block, x, output_size, num_heads, window_size,
-                              frame_valid)
+        if remat:
+            x = checkpoint(transformer_block, block, x, output_size,
+                           num_heads, window_size, frame_valid,
+                           use_reentrant=False)
+        else:
+            x = transformer_block(block, x, output_size, num_heads,
+                                  window_size, frame_valid)
     return x

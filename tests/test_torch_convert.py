@@ -74,3 +74,53 @@ def test_init_mirrors_jax_distributions():
     assert abs(std - 0.02) < 1e-3, std
     again = tgen.Generator().init_weights(torch.Generator().manual_seed(0))
     assert torch.equal(again.ss.embedding.weight, model.ss.embedding.weight)
+
+
+def test_train_state_carries_across():
+    """A JAX TrainState (HQ generator, discriminator, frozen SPyNet, step)
+    through from_jax_train_state into the port's modules, strict; the
+    generator's weights are from_jax_params' (bit-exact, above); then one
+    forward on the same input: the discriminator's logits, the frozen
+    SPyNet's flows and the generator's trainable SPyNet's within 1e-4
+    relative."""
+    import jax.numpy as jnp
+    from e2fgvi_tpu.models import discriminator as jdisc
+    from e2fgvi_tpu.models import e2fgvi as jgen
+    from e2fgvi_tpu.models import spynet as jspynet
+    from e2fgvi_tpu.train import step as jstep
+    from e2fgvi_tpu_torch.convert.from_jax import from_jax_train_state
+    from e2fgvi_tpu_torch.models import discriminator, spynet
+
+    params_g = jgen.init_params(jax.random.PRNGKey(0), variant="hq")
+    params_d = jdisc.init_params(jax.random.PRNGKey(1))
+    fixed = jspynet.init_params(jax.random.PRNGKey(2))
+    tx_g, tx_d = jstep.make_optimizers(1e-4, lambda s: 1e-4)
+    state = jstep.init_train_state(params_g, params_d, fixed, tx_g, tx_d)
+    state = state._replace(step=jnp.asarray(7, jnp.int32))
+    carried = from_jax_train_state(jax.tree.map(np.asarray, state), "hq")
+    assert carried["step"] == 7
+    gen = tgen.Generator("hq")
+    gen.load_state_dict(carried["gen"], strict=True)
+    dis = discriminator.Discriminator()
+    dis.load_state_dict(carried["dis"], strict=True)
+    net = spynet.SPyNet()
+    net.load_state_dict(carried["fixed_spynet"], strict=True)
+
+    for k, v in from_jax_params(jax.tree.map(np.asarray, params_g),
+                                "hq").items():
+        assert torch.equal(gen.state_dict()[k], v), k
+
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1, 1, (1, 4, 60, 108, 3)).astype(np.float32)
+    wlog, _ = jdisc.apply(params_d, jnp.asarray(x), update_stats=True)
+    with torch.no_grad():
+        glog = dis(torch.from_numpy(x), update=True)
+    np.testing.assert_allclose(glog.numpy(), np.asarray(wlog), rtol=1e-4,
+                               atol=1e-6)
+    a, b = x[0, :2] * 0.5 + 0.5, x[0, 2:] * 0.5 + 0.5
+    for jp, tnet in ((fixed, net), (params_g["spynet"], gen.update_spynet)):
+        wflow = jspynet.spynet_flow(jp, jnp.asarray(a), jnp.asarray(b))
+        with torch.no_grad():
+            gflow = tnet(torch.from_numpy(a), torch.from_numpy(b))
+        np.testing.assert_allclose(gflow.numpy(), np.asarray(wflow),
+                                   rtol=1e-4, atol=1e-4)

@@ -230,6 +230,31 @@ _NO_JAX_CASES = {
         "'--i3d_ckpt', os.path.join(TMP, 'absent.pt'), '--device', 'cpu', "
         "'--out', os.path.join(TMP, 'results')])\n"
         "print(int(psnr > 0 and 0 < ssim <= 1))\n"),
+    "train": (
+        "import json, os, zipfile\n"
+        "import numpy as np\n"
+        "from PIL import Image\n"
+        "from e2fgvi_tpu_torch.train import trainer\n"
+        "root = os.path.join(TMP, 'vos')\n"
+        "os.makedirs(os.path.join(root, 'JPEGImages'))\n"
+        "rng = np.random.default_rng(0)\n"
+        "with zipfile.ZipFile(os.path.join(root, 'JPEGImages', 'v.zip'), "
+        "'w') as zf:\n"
+        "    for i in range(6):\n"
+        "        p = os.path.join(TMP, 'f.jpg')\n"
+        "        Image.fromarray(rng.integers(0, 255, (120, 216, 3), "
+        "dtype=np.uint8)).save(p)\n"
+        "        zf.write(p, arcname=f'{i:05d}.jpg')\n"
+        "json.dump({'v': 6}, open(os.path.join(root, 'train.json'), 'w'))\n"
+        "cfg = json.load(open('configs/train_e2fgvi_hq.json'))\n"
+        "cfg['save_dir'] = TMP\n"
+        "cfg['train_data_loader'].update(name='vos', data_root=TMP, w=216, "
+        "h=120, num_local_frames=3, num_ref_frames=1)\n"
+        "cfg['trainer'].update(batch_size=1, num_workers=1)\n"
+        "json.dump(cfg, open(os.path.join(TMP, 'cfg.json'), 'w'))\n"
+        "tr = trainer.main(['-c', os.path.join(TMP, 'cfg.json'), "
+        "'--max_steps', '1', '--device', 'cpu'])\n"
+        "print(tr.iteration)\n"),
 }
 
 
@@ -273,6 +298,12 @@ def test_port_imports_without_jax(case, tmp_path):
     if case == "ast":
         files = _port_sources()
         assert len(files) >= 30
+        # the training slice's modules are among them
+        rel = {os.path.relpath(p, ROOT) for p in files}
+        assert {f"e2fgvi_tpu_torch/{m}.py" for m in (
+            "models/discriminator", "train/losses", "train/schedules",
+            "train/step", "train/trainer", "parallel/dist",
+            "utils/checkpoints", "utils/tb")} <= rel
         bad = {os.path.relpath(p, ROOT): hits for p in files
                if (hits := _blocked_imports(p))}
         assert not bad, bad
