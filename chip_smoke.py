@@ -424,6 +424,19 @@ def gemm_ops(flops, x, tf32=False):
     return (3 * flops, PEAK_FLOPS["tf32"]) if tf32 else (flops, peak(x))
 
 
+def peak_mib(fn):
+    """Peak device memory of one call of fn above what was allocated
+    before it."""
+    import torch
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
 def k1_gemm_and_peak(k1_inputs, dtypes, m):
     """gemm_ms: cuBLAS col @ w_r on a random M x 2304 im2col matrix, the
     contraction alone (what the float32 K1 ran after an im2col kernel
@@ -437,14 +450,10 @@ def k1_gemm_and_peak(k1_inputs, dtypes, m):
     for dt in dtypes:
         sfx = "_f32" if dt == "float32" and "bfloat16" in dtypes else ""
         x, head, f1, f2, wt, bias = k1_inputs(getattr(torch, dt))
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode():
-            deform.modulated_deform_conv2d_head(x, head, f1, f2, wt, bias)
-        torch.cuda.synchronize()
-        res["peak_mib" + sfx] = (torch.cuda.max_memory_allocated()
-                                 - before) / 2**20
+            res["peak_mib" + sfx] = peak_mib(
+                lambda: deform.modulated_deform_conv2d_head(
+                    x, head, f1, f2, wt, bias))
         kdim = wt[0].numel()
         col = torch.randn((m, kdim), device=x.device).to(x.dtype)
         w_r = torch.randn((kdim, wt.shape[0]), device=x.device).to(x.dtype)
@@ -1141,6 +1150,213 @@ def run_train(dev, tmp):
     return res
 
 
+# phase 10, token maps: at base B windows of T_pad 17 (bf16 serving's
+# max_batch), in both dtypes; at 864x480 the same in bfloat16 and the
+# inpaint CLI's float32 batch (max_batch 4). Bars: float32 max |delta|
+# relative to the literal chain's largest value (the two forms sum the same
+# float32 terms in other orders); bfloat16 relative to the float32 literal
+# chain on the same rounded inputs, as bf16_rel_err is
+TOKEN_MAPS = {"base": ("base", (H, W)), "864x480": ("hq", HQ_MAP)}
+TOKEN_F32_WINDOWS = {"base": B, "864x480": 4}
+TOKEN_F32_REL, TOKEN_BF16_REL = 2e-5, 2e-2
+
+
+def subpixel_tokens_to_pixels(xt, weight, bias, output_size):
+    """fold(linear(xt, weight, bias)) in the JAX package's sub-pixel form
+    (e2fgvi_tpu/models/tfocal.py _tokens_to_pixels_conv): one dense 3x3
+    convolution of the token grid to 9*cc channels, one per output phase,
+    then depth-to-space; channel-last like tfocal._tokens_to_pixels. A
+    yardstick for that function's transposed convolution, which the port
+    runs; the port never calls this. Output row s*i + P takes kernel row
+    s*d + P + p of token row i - d."""
+    import torch
+    import torch.nn.functional as F
+    from e2fgvi_tpu_torch.models import tfocal
+    from e2fgvi_tpu_torch.ops.patches import fold_bias
+    (k, _), (s, _), (p, _) = (tfocal.T2T_KERNEL, tfocal.T2T_STRIDE,
+                              tfocal.T2T_PADDING)
+    reach = (k - 1 + p) // s                   # |d| <= 1 at 7/3/3
+    taps = 2 * reach + 1
+    ky = (s * (reach - torch.arange(taps))[None, :]
+          + torch.arange(s)[:, None] + p)      # (phase, tap)
+    ky = torch.where((ky >= 0) & (ky < k), ky, k).to(weight.device)
+    c_in = xt.shape[-1]
+    cc = weight.shape[0] // (k * k)
+    wr = F.pad(weight.reshape(cc, k, k, c_in), (0, 0, 0, 1, 0, 1))
+    wsub = wr[:, ky[:, None, :, None], ky[None, :, None, :]]
+    wsub = wsub.permute(1, 2, 0, 5, 3, 4).reshape(s * s * cc, c_in, taps,
+                                                  taps)
+    z = F.conv2d(xt.permute(0, 3, 1, 2), wsub.to(xt.dtype), padding=reach)
+    bt, _, lh, lw = z.shape
+    z = z.permute(0, 2, 3, 1).reshape(bt, lh, lw, s, s, cc)
+    z = z.permute(0, 1, 3, 2, 4, 5).reshape(bt, lh * s, lw * s, cc)
+    z = z[:, :output_size[0], :output_size[1]].permute(0, 3, 1, 2)
+    return z + fold_bias(bias.to(xt.dtype), output_size, tfocal.T2T_KERNEL,
+                         tfocal.T2T_STRIDE, tfocal.T2T_PADDING)
+
+
+def token_map_modules(variant, size, dev, seed=5):
+    """Soft comp (base: the bias map of `size`; HQ: the bias conv) and one
+    F3N at full width (512 hidden, 1960 = 40 x 49), seeded weights by the
+    golden's rule."""
+    import torch
+    from e2fgvi_tpu_torch.models import tfocal
+    sc = tfocal.SoftComp(128, 512, size if variant == "base" else None)
+    mlp = tfocal.FusionFeedForward(512, 1960)
+    rng = np.random.default_rng(seed)
+    for m in (sc, mlp):
+        m.load_state_dict({k: torch.from_numpy(fill_weight(
+            k, tuple(v.shape), rng)) for k, v in m.state_dict().items()})
+    return sc.to(dev), mlp.to(dev)
+
+
+def check_token_maps(dev):
+    """Phase 10: soft comp and the F3N feed-forward in their conv forms
+    against their literal chains (Linear -> F.fold [-> F.unfold -> gelu ->
+    Linear]) at TOKEN_MAPS' shapes in both dtypes: max |delta| within the
+    bars, whether the output is contiguous, the ms of each form, one call's
+    peak MiB each, and the token -> pixel map alone (t2p, a transposed
+    convolution) beside the sub-pixel form (subpixel_tokens_to_pixels);
+    for F3N also the form tfocal.fusion_feed_forward takes (the literal
+    chain in float32, the conv form in bfloat16)."""
+    import torch
+    from e2fgvi_tpu_torch.models import tfocal
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    res = {}
+    for label, (variant, size) in TOKEN_MAPS.items():
+        sc32, mlp32 = token_map_modules(variant, size, dev)
+        lh, lw = tfocal.token_grid(size)
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            b = B if dt == "bfloat16" else TOKEN_F32_WINDOWS[label]
+            sc, mlp = (copy.deepcopy(m).to(dtype) for m in (sc32, mlp32))
+            g = torch.Generator(device=dev).manual_seed(9)
+            tok = torch.randn((b, 17, lh, lw, 512), generator=g,
+                              device=dev).to(dtype)
+            x = tok.reshape(b, -1, 512)
+            cases = (
+                ("soft_comp", tfocal.soft_comp, tfocal._soft_comp_literal,
+                 sc, tok, sc.embedding),
+                ("f3n", tfocal._fusion_feed_forward_conv,
+                 tfocal._fusion_feed_forward_literal, mlp, x,
+                 mlp.conv1[0]))
+            for name, conv_fn, literal_fn, m, inp, lin in cases:
+                r = {"frame_maps": b * 17}
+                ref = copy.deepcopy(m).float()
+                with torch.inference_mode():
+                    got = conv_fn(m, inp, 17, size)
+                    r["contiguous"] = got.is_contiguous()
+                    if name == "f3n":
+                        # the form the path takes: the literal chain in
+                        # float32 on the card, the conv form otherwise
+                        path = tfocal.fusion_feed_forward(m, inp, 17, size)
+                        r["path"] = (
+                            "conv" if torch.equal(path, got) else "literal"
+                            if torch.equal(path, literal_fn(m, inp, 17, size))
+                            else "neither")
+                        if r["path"] != ("literal" if dt == "float32"
+                                         and inp.is_cuda else "conv"):
+                            raise AssertionError(f"token maps {label} {dt} "
+                                                 f"f3n: path {r['path']}")
+                        del path
+                    # the float32 literal chain one window at a time: its
+                    # 864x480 patch tensors would not fit whole
+                    want = torch.cat([literal_fn(ref, inp[i: i + 1].float(),
+                                                 17, size)
+                                      for i in range(b)])
+                    err = float((got.float() - want).abs().max())
+                    r["max_abs_err"] = err
+                    r["rel_err"] = err / float(want.abs().max())
+                    del got, want
+                    bar = r["bar"] = (TOKEN_BF16_REL if dt == "bfloat16"
+                                      else TOKEN_F32_REL)
+                    if not r["rel_err"] <= bar:
+                        raise AssertionError(f"token maps {label} {dt} "
+                                             f"{name}: {r}, bar {bar}")
+                    if not r["contiguous"]:
+                        raise AssertionError(f"token maps {label} {dt} "
+                                             f"{name}: output not "
+                                             "contiguous")
+                    r["ms"] = cuda_ms(lambda: conv_fn(m, inp, 17, size))
+                    r["literal_ms"] = cuda_ms(
+                        lambda: literal_fn(m, inp, 17, size))
+                    r["peak_mib"] = peak_mib(lambda: conv_fn(m, inp, 17,
+                                                             size))
+                    r["literal_peak_mib"] = peak_mib(
+                        lambda: literal_fn(m, inp, 17, size))
+                    xt = tok.reshape(b * 17, lh, lw, 512)
+                    r["t2p_ms"] = cuda_ms(lambda: tfocal._tokens_to_pixels(
+                        xt, lin.weight, lin.bias, size))
+                    r["t2p_subpixel_ms"] = cuda_ms(
+                        lambda: subpixel_tokens_to_pixels(
+                            xt, lin.weight, lin.bias, size))
+                res[f"{label} {dt} {name}"] = r
+                del ref
+                torch.cuda.empty_cache()
+            del sc, mlp, tok, x
+        del sc32, mlp32
+        torch.cuda.empty_cache()
+    return res
+
+
+def trace_transformer(dev):
+    """The device operations of one warm base bfloat16 window batch's
+    transformer stage (soft split, the 8 blocks, soft comp: window_stage's
+    `transformer` stage) on B windows of 17 frames of random features."""
+    import torch
+    from e2fgvi_tpu_torch.models import e2fgvi, tfocal
+    from e2fgvi_tpu_torch.utils.profiling import trace
+    model = golden_model("base", dev).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(3)
+    feat = torch.randn((B, 17, H, W, 128), generator=g,
+                       device=dev).to(torch.bfloat16)
+    valid = torch.ones((B, 17), dtype=torch.bool, device=dev)
+
+    def stage():
+        tokens = tfocal.soft_split(model.ss, feat.reshape(B * 17, H, W, 128),
+                                   B)
+        tokens = tfocal.transformer_stack(
+            model.transformer, tokens, (H, W), e2fgvi.NUM_HEADS,
+            e2fgvi.WINDOW_SIZE, frame_valid=valid)
+        return feat + tfocal.soft_comp(model.sc, tokens, 17,
+                                       (H, W)).reshape(feat.shape)
+
+    with torch.inference_mode():
+        stage()
+        with trace() as table:
+            stage()
+    del model
+    torch.cuda.empty_cache()
+    return table
+
+
+def trace_train_step(dev, tmp):
+    """The device operations of one warm step of configs/train_e2fgvi.json
+    at its batch 8 (Trainer.train, data loading included) on a synthetic
+    YouTube-VOS-layout set."""
+    import torch
+    from e2fgvi_tpu_torch.train.trainer import Trainer
+    from e2fgvi_tpu_torch.utils.profiling import trace
+    root = write_vos(tmp, TRAIN_VIDEOS, 20, 240, 432)
+    cfg = train_config("train_e2fgvi.json", root, os.path.join(tmp, "ckpt"),
+                       batch_size=8, save_freq=1000, log_freq=1000)
+    tr = Trainer(cfg, device=dev)
+    tr.train(max_steps=1)
+    with trace() as table:
+        tr.train(max_steps=1)
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    return table
+
+
+def log_trace(label, table):
+    log(f"trace {label}: wall {table['wall_ms']:.2f} ms, device busy "
+        f"{table['busy_ms']:.2f} ms")
+    for row in table["top"]:
+        log(f"  {row['ms']:10.3f} ms {row['calls']:6d}x  {row['name'][:140]}")
+
+
 def e3_library(tab, idx):
     """torch.gather on E3's table, the index widened to int64 beforehand: a
     callable to time."""
@@ -1445,6 +1661,17 @@ def main():
         f"{json.dumps(base['launches_forward_per_step'])}, remat/step "
         f"{json.dumps(base['launches_remat_per_step'])}")
     t0 = phase_end("train", t0)
+
+    # 10. token maps: the conv forms of soft comp and F3N against their
+    # literal chains; where the transformer's and a training step's device
+    # time goes
+    for name, r in check_token_maps(dev).items():
+        log(f"token maps {name}: " + json.dumps(r))
+    log_trace("transformer stage, base bf16 window batch",
+              trace_transformer(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        log_trace("train step, base batch 8", trace_train_step(dev, tmp))
+    t0 = phase_end("token maps", t0)
     jax_mods = sorted(m for m in sys.modules
                       if m == "jax" or m.startswith("jax."))
     if jax_mods:

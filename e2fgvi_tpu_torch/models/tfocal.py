@@ -6,6 +6,16 @@ model/modules/tfocal_transformer.py). Weights keep the released
 checkpoint's layout: patch features are channel-major (c*49 + k), which is
 the order F.unfold / F.fold use, so no permutation is needed.
 
+Soft comp and the F3N feed-forward compute their token <-> pixel maps as
+convolutions, as the JAX package does off the CPU (_tokens_to_pixels_conv,
+_fusion_feed_forward_conv): fold(linear(tokens)) is one stride-3
+transposed convolution plus the folded bias map, and linear(unfold(z)) one
+stride-3 convolution, so the wide patch tensors of the reference's literal
+Linear -> Fold -> Unfold chain are never built. The literal chains stay as
+_soft_comp_literal and _fusion_feed_forward_literal, the reference the
+tests hold the conv forms to; F3N runs its literal chain in float32 on the
+card, where it is the faster (fusion_feed_forward).
+
 Window attention is the JAX package's fused formulation
 (_window_attention_fused): per-head q/k/v maps, the window's own keys and
 the rolled + pooled keys gathered through the deduplicated static key
@@ -33,7 +43,9 @@ from torch.utils.checkpoint import checkpoint
 
 from e2fgvi_tpu_torch.kernels.focal_attention import focal_attention
 from e2fgvi_tpu_torch.ops.convs import conv2d, gelu, layer_norm, linear
-from e2fgvi_tpu_torch.ops.patches import fold, fold_normalized, unfold
+from e2fgvi_tpu_torch.ops.patches import (fold, fold_bias, fold_counts,
+                                          fold_normalized,
+                                          grid_and_output_padding, unfold)
 
 T2T_KERNEL = (7, 7)
 T2T_STRIDE = (3, 3)
@@ -127,23 +139,55 @@ def soft_split(ss, x, b):
     return tok.reshape(b, bt // b, *tok.shape[1:])
 
 
+def _tokens_to_pixels(xt, weight, bias, output_size):
+    """fold(linear(xt, weight, bias), output_size) as one stride-3
+    transposed convolution plus the folded bias map.
+
+    xt: (BT, Lh, Lw, C) tokens; weight: (cc*49, C), a Linear whose outputs
+    are channel-major patches (c*49 + k); bias: (cc*49,). Returns
+    (BT, cc, H, W), channels-last in memory. The fold adds each token's
+    patch into its 7x7 window at stride 3, which conv_transpose2d computes
+    with the weight laid out (C, cc, 7, 7): for channel-major rows that is
+    weight.t() reshaped, with no flip."""
+    _, out_pad = grid_and_output_padding(output_size, T2T_KERNEL,
+                                         T2T_STRIDE, T2T_PADDING)
+    wt = weight.t().reshape(xt.shape[-1], -1, *T2T_KERNEL).to(xt.dtype)
+    z = F.conv_transpose2d(xt.permute(0, 3, 1, 2), wt, stride=T2T_STRIDE,
+                           padding=T2T_PADDING, output_padding=out_pad)
+    return z + fold_bias(bias.to(xt.dtype), output_size, T2T_KERNEL,
+                         T2T_STRIDE, T2T_PADDING)
+
+
+def _comp_bias(sc, out):
+    """The learned (C, H, W) bias map (base, reference
+    tfocal_transformer.py:49-72) or the 3x3 bias conv (HQ,
+    tfocal_transformer_hq.py:58-79) on the folded (BT, C, H, W) map."""
+    if hasattr(sc, "bias_conv"):
+        conv = sc.bias_conv
+        return F.conv2d(out, conv.weight.to(out.dtype),
+                        conv.bias.to(out.dtype), padding=1)
+    return out + sc.bias.to(out.dtype)
+
+
 def soft_comp(sc, tokens, t, output_size):
-    """(B, T, f_h, f_w, hidden) -> (B*T, H, W, C): Linear, overlap-add fold,
-    then the learned bias map (base, reference tfocal_transformer.py:49-72)
-    or the 3x3 bias conv on the folded map (HQ, tfocal_transformer_hq.py:
-    58-79)."""
-    b, tt, lh, lw, hidden = tokens.shape
+    """(B, T, f_h, f_w, hidden) -> (B*T, H, W, C): Linear and overlap-add
+    fold as one transposed convolution (_tokens_to_pixels), then the bias
+    map or the bias conv."""
+    b, _, lh, lw, hidden = tokens.shape
+    out = _tokens_to_pixels(tokens.reshape(b * t, lh, lw, hidden),
+                            sc.embedding.weight, sc.embedding.bias,
+                            output_size)
+    return _comp_bias(sc, out).permute(0, 2, 3, 1)
+
+
+def _soft_comp_literal(sc, tokens, t, output_size):
+    """soft_comp as the reference writes it: Linear, then F.fold."""
+    b, _, lh, lw, hidden = tokens.shape
     patches = linear(tokens.reshape(b * t, lh * lw, hidden),
                      sc.embedding.weight, sc.embedding.bias)
     out = fold(patches.transpose(1, 2), output_size, T2T_KERNEL,
                T2T_STRIDE, T2T_PADDING)
-    if hasattr(sc, "bias_conv"):
-        conv = sc.bias_conv
-        out = F.conv2d(out, conv.weight.to(out.dtype),
-                       conv.bias.to(out.dtype), padding=1)
-    else:
-        out = out + sc.bias.to(out.dtype)
-    return out.permute(0, 2, 3, 1)
+    return _comp_bias(sc, out).permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -366,9 +410,43 @@ def window_attention(attn, x, pooled, num_heads, window_size, expand_size,
 # ---------------------------------------------------------------------------
 
 def fusion_feed_forward(mlp, x, t, output_size):
-    """x: (B, N, C) tokens. The reference's literal chain: fc1, overlap-mean
-    fold to pixels, unfold back to patches, gelu, fc2
-    (tfocal_transformer.py:75-101)."""
+    """x: (B, N, C) tokens -> (B, N, C): the reference's fc1 -> overlap-mean
+    fold -> unfold -> gelu -> fc2 (tfocal_transformer.py:75-101) in its
+    conv form, except for float32 on the card. There cuDNN's float32
+    convolutions (TF32 off) lose to the literal chain's GEMMs: one call
+    took 32.7 ms against 28.2 at base (238 frame maps) and 37.4 against
+    29.9 at 864x480 (68), where in bfloat16 the conv form took 3.8 against
+    14.8 and 14.9 against 50.4 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+    phase 10)."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return _fusion_feed_forward_literal(mlp, x, t, output_size)
+    return _fusion_feed_forward_conv(mlp, x, t, output_size)
+
+
+def _fusion_feed_forward_conv(mlp, x, t, output_size):
+    """The conv form of F3N (e2fgvi_tpu/models/tfocal.py
+    _fusion_feed_forward_conv): fc1 and the fold as one transposed
+    convolution to pixels, the division by the overlap counts in float32,
+    gelu on the (BT, cc, H, W) map (unfold only gathers, so gelu commutes
+    with it), unfold and fc2 as one stride-3 convolution whose OIHW weight
+    is fc2's channel-major weight as it stands."""
+    b, n, c = x.shape
+    fc1, fc2 = mlp.conv1[0], mlp.conv2[1]
+    lh, lw = token_grid(output_size)
+    z = _tokens_to_pixels(x.reshape(-1, lh, lw, c), fc1.weight, fc1.bias,
+                          output_size)
+    cnt = fold_counts(output_size, T2T_KERNEL, T2T_STRIDE, T2T_PADDING,
+                      x.device)
+    z = gelu((z / cnt).to(z.dtype))
+    w2 = fc2.weight.reshape(c, -1, *T2T_KERNEL).to(z.dtype)
+    y = F.conv2d(z, w2, fc2.bias.to(z.dtype), stride=T2T_STRIDE,
+                 padding=T2T_PADDING)
+    return y.permute(0, 2, 3, 1).reshape(b, n, c)
+
+
+def _fusion_feed_forward_literal(mlp, x, t, output_size):
+    """F3N as the reference writes it: fc1, overlap-mean fold to pixels,
+    unfold back to patches, gelu, fc2."""
     b, n, c = x.shape
     fc1, fc2 = mlp.conv1[0], mlp.conv2[1]
     hid = linear(x, fc1.weight, fc1.bias)                  # (B, N, d_ff)

@@ -3,7 +3,8 @@
 card.
 
     python3 tools/deform_ab.py --root <tree> --tag <name> [--out <dir>]
-                               [--parts deform gather accuracy serve_f32]
+                               [--parts deform gather accuracy serve_f32
+                                        serve_bf16]
     python3 tools/deform_ab.py --compare <dir>/<a>.pt <dir>/<b>.pt
     python3 tools/deform_ab.py --summarize <tree>_<pair>.jsonl ...
 
@@ -39,7 +40,9 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
 - `serve_f32`: chip_smoke.serve in float32 at the inpaint CLI's defaults
   (max_batch 4) with the golden weights: base 432x240, 2 videos of 70
   frames (chip_smoke phase 5), and HQ 864x480, one of 20 (phase 7):
-  frames/s and stage ms a video.
+  frames/s, stage ms a video and the peak device memory of the runs;
+- `serve_bf16`: the same in bfloat16 at max_batch 14: base, 3 videos of
+  70 frames (phase 5), and HQ 864x480, 2 of 70 (phase 7).
 
 Every part also prints the SASS opcode histogram of its kernels
 (cuobjdump): load and store opcodes in full, the rest as a digest. The
@@ -49,7 +52,7 @@ whether the float32 K1's, which need not be (its 3xTF32 contraction sums
 in another order than a float32 GEMM), are within
 chip_smoke.F32_MAX_ABS's bar for K1 against its plain version. The third
 form reads the first form's output, saved as <tree>_<pair>.jsonl a
-run, and prints each tree's medians and, pair by pair, how often each ms
+run, and prints each tree's medians, minima and maxima and, pair by pair, how often each ms
 was below its library call's (same run) and below the other tree's (same
 pair). Every result line is JSON; the card's name and power limit come
 first.
@@ -72,7 +75,8 @@ SASS = {"deform": ("deform_conv_tf32_kernel", "flow_warp_kernel",
                    "deform_conv_wgmma_kernel", "focal_attention_wgmma_kernel",
                    "focal_attention_tf32_kernel"),
         "gather": ("row_gather_kernel", "bilinear4", "group_major_kernel"),
-        "accuracy": ("deform_conv_tf32_kernel",), "serve_f32": ()}
+        "accuracy": ("deform_conv_tf32_kernel",), "serve_f32": (),
+        "serve_bf16": ()}
 SPLIT_CALLS = 200
 GATHER_ITERS = 50    # cuda_ms calls a median for the ~0.05 ms gathers
 # (kernel's ms, its library call's ms) keys of a result line
@@ -290,20 +294,34 @@ def run_accuracy(cs, tag, dev, saved):
         torch.cuda.empty_cache()
 
 
-def run_serve_f32(cs, tag, dev, saved):
+def serve_runs(cs, tag, dev, dtype, max_batch, cases):
+    """chip_smoke.serve with the golden weights of each (variant, videos,
+    frames, (h, w)) case in `dtype`: one result line a video."""
     import torch
     from e2fgvi_tpu_torch.utils.timing import StageTimer
-    for variant, n, t, (h, w) in (("base", 2, 70, (240, 432)),
-                                  ("hq", 1, 20, (480, 864))):
-        model = cs.golden_model(variant, dev)
+    for variant, n, t, (h, w) in cases:
+        model = cs.golden_model(variant, dev).to(getattr(torch, dtype))
+        torch.cuda.reset_peak_memory_stats()
         runs, _, _ = cs.serve(model, dev, n_videos=n, t=t,
-                              timer_cls=StageTimer, max_batch=4,
-                              dtype="float32", h=h, w=w)
+                              timer_cls=StageTimer, max_batch=max_batch,
+                              dtype=dtype, h=h, w=w)
+        gib = torch.cuda.max_memory_allocated() / 2**30
         for i, r in enumerate(runs):
             print(json.dumps({"tag": tag, "serve": f"{variant} {w}x{h}",
-                              "video": i, **r}), flush=True)
+                              "dtype": dtype, "video": i, **r,
+                              "peak_gib": gib}), flush=True)
         del model
         torch.cuda.empty_cache()
+
+
+def run_serve_f32(cs, tag, dev, saved):
+    serve_runs(cs, tag, dev, "float32", 4, (("base", 2, 70, (240, 432)),
+                                            ("hq", 1, 20, (480, 864))))
+
+
+def run_serve_bf16(cs, tag, dev, saved):
+    serve_runs(cs, tag, dev, "bfloat16", cs.B,
+               (("base", 3, 70, (240, 432)), ("hq", 2, 70, (480, 864))))
 
 
 def measure(root, tag, out_dir, parts):
@@ -332,7 +350,8 @@ def measure(root, tag, out_dir, parts):
               flush=True)
     saved = {}
     runners = {"deform": run_deform, "gather": run_gather,
-               "accuracy": run_accuracy, "serve_f32": run_serve_f32}
+               "accuracy": run_accuracy, "serve_f32": run_serve_f32,
+               "serve_bf16": run_serve_bf16}
     for p in parts:
         runners[p](cs, tag, dev, saved)
     os.makedirs(out_dir, exist_ok=True)
@@ -389,9 +408,11 @@ def summarize(paths):
     for tree in trees:
         mine = {i: v for (t, i), v in runs.items() if t == tree}
         keys = sorted({k for v in mine.values() for k in v})
-        print(json.dumps({"tree": tree, "runs": len(mine), "median": {
-            k: statistics.median(v[k] for v in mine.values() if k in v)
-            for k in keys}}), flush=True)
+        vals = {k: [v[k] for v in mine.values() if k in v] for k in keys}
+        print(json.dumps({"tree": tree, "runs": len(mine), **{
+            stat: {k: f(x) for k, x in vals.items()} for stat, f in (
+                ("median", statistics.median), ("min", min), ("max", max))}}),
+            flush=True)
         wins = {}
         for k in keys:
             name, _, key = k.rpartition(": ")
@@ -400,8 +421,9 @@ def summarize(paths):
                     wins[f"{k} < {lib}"] = sum(
                         v[k] < v[f"{name}: {lib}"] for v in mine.values()
                         if k in v and f"{name}: {lib}" in v)
-            # ms: lower is better; frames/s: higher
-            sign = 1 if key.endswith("ms") else -1 if key == "fps" else 0
+            # ms (a stage's too): lower is better; frames/s: higher
+            sign = (1 if key.endswith("ms") or key.startswith("stages_ms")
+                    else -1 if key == "fps" else 0)
             for other in trees if sign and "split" not in key else ():
                 if other != tree:
                     wins[f"{k} {'<' if sign > 0 else '>'} {other}'s"] = sum(
