@@ -9,7 +9,10 @@ Phases, one line each (any failed check raises and exits nonzero):
   2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc; the SASS
               of the bf16 K3 and of K1 in both dtypes (one fused kernel
               each) must hold HGMMA (wgmma; TF32 ones in the float32 K1)
-              and UTMALDG (TMA loads)
+              and UTMALDG (TMA loads); the bf16 K3's opcode histogram must
+              be K3_SASS's (its consumer loop is shared with E2); E2 must
+              hold HGMMA and LDGSTS (cp.async) and no HMMA (mma.sync), and
+              csrc/flash_mma.cuh must be gone
   3. kernels  K1 deform_conv, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
@@ -44,7 +47,12 @@ Phases, one line each (any failed check raises and exits nonzero):
               for E4); then
               the four experiment entry points
               (e2fgvi_tpu_torch.experiments) with launch counts, and E2
-              against K3 on one random block
+              against K3 on one random block. E2 also alone (kernel_ms,
+              kernel_bound_ms) beside K3's layer on the same inputs
+              (k3_layer_ms), and within 5e-2 of the scale of its plain
+              version and of K3's layer, with and without frame_valid, at
+              the serving shape (B=14) and at 864x480 (40x72 tokens, 64
+              windows, B=2)
   7. hq       K1, K2 and K3 against their plain versions at the HQ model's
               shapes: 864x480 (120x216 maps; K3 on 64 windows, S=149, at
               B=2, at B=14, there against the plain version one batch
@@ -122,6 +130,11 @@ BF16_REL = {"deform_conv": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2,
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 CSRC = "e2fgvi_tpu_torch/csrc/"
+# the bf16 K3's SASS opcode histogram (opcodes with their modifiers) before
+# its consumer loop moved to csrc/attention_wgmma.cuh, shared with E2:
+# instructions and sass_digest (the parent tree's build, NVIDIA H100 80GB
+# HBM3, CUDA toolkit of the card's machine)
+K3_SASS = {"total": 1320, "digest": "e34515f45fb1"}
 REPLACES = {
     "deform_conv": (CSRC + "deform.cu",
                     "e2fgvi_tpu/kernels/dcn_band.py:158"),
@@ -176,6 +189,15 @@ def sass_counts(lib, kernel, opcodes):
     return {op: sum(n for full, n in hist.items()
                     if full == op or full.startswith(op + "."))
             for op in opcodes}
+
+
+def sass_digest(hist):
+    """{"total", "digest"} of a sass_histograms Counter: its instruction
+    count and a hash of its sorted (opcode, count) pairs."""
+    import hashlib
+    text = json.dumps(sorted(hist.items()))
+    return {"total": sum(hist.values()),
+            "digest": hashlib.sha256(text.encode()).hexdigest()[:12]}
 
 
 def phase_end(name, t0):
@@ -1449,6 +1471,7 @@ def check_experiment_kernels(dev):
         library_fn=e4_library)
 
     block, x, pooled = ea.make_block(dev)           # E2: B 14, T 17
+    args = (block.attn, x, pooled, ea.HEADS, ea.WIN, ea.EXP)
 
     def band_attention_bound(args, out):
         # the qkv GEMMs (tokens and pooled tokens), attention over each
@@ -1466,9 +1489,74 @@ def check_experiment_kernels(dev):
 
     res["band_attention"] = compare(
         "band_attention", ba.band_attention, ba.band_attention_plain,
-        lambda dt: (block.attn, x, pooled, ea.HEADS, ea.WIN, ea.EXP),
-        dtypes=("bfloat16",), bound_fn=band_attention_bound)
+        lambda dt: args, dtypes=("bfloat16",),
+        bound_fn=band_attention_bound)
+    res["band_attention"].update(check_band_attention(dev, args))
     return res, exact
+
+
+def band_parity(args):
+    """E2's layer against its plain version (float32, the same bf16
+    inputs) and K3's layer, without and with frame_valid (the experiment's
+    padding pattern, over the queries of valid frames): max |delta| over
+    the plain version's scale, each below BF16_REL["band_attention"]."""
+    import torch
+    from e2fgvi_tpu_torch.experiments import exp_attn_band_r04 as ea
+    from e2fgvi_tpu_torch.kernels import band_attention as ba
+    from e2fgvi_tpu_torch.models import tfocal
+    attn, x, pooled = args[:3]
+    res = {}
+    for sfx, fv in (("", None),
+                    ("_fv", ea.frame_valid_mask(*x.shape[:2], x.device))):
+        got = ba.band_attention(*args, frame_valid=fv)
+        want = ba.band_attention_plain(attn, x.float(), pooled.float(),
+                                       *args[3:], frame_valid=fv)
+        k3 = tfocal.window_attention(*args, frame_valid=fv)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"band_attention{sfx}: non-finite output")
+        if fv is None:
+            fv = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        scale = float(want.float().abs().max())
+        res["plain_rel" + sfx] = ea.valid_query_err(got, want, fv) / scale
+        res["k3_rel" + sfx] = ea.valid_query_err(got, k3, fv) / scale
+        del got, want, k3
+    bar = BF16_REL["band_attention"]
+    if not all(v < bar for v in res.values()):
+        raise AssertionError(f"band_attention parity {res}, bar {bar}")
+    return res
+
+
+def check_band_attention(dev, args):
+    """E2 beside compare(): the kernel alone (kernel_ms, on the qkv maps
+    of the layer's GEMMs) against its bound (kernel_bound_ms: q.k and p.v
+    over every window's T * S keys at the bf16 rate, against the maps'
+    bytes), K3's layer on the same inputs (k3_layer_ms), and band_parity
+    at the serving shape and at 864x480 (40x72 tokens, 64 windows, B=2)."""
+    import torch
+    from e2fgvi_tpu_torch.experiments import exp_attn_band_r04 as ea
+    from e2fgvi_tpu_torch.kernels import band_attention as ba
+    from e2fgvi_tpu_torch.models import tfocal
+    from e2fgvi_tpu_torch.ops.convs import linear
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    attn, x, pooled, heads, win, exp = args
+    qkv = linear(x, attn.qkv.weight, attn.qkv.bias).contiguous()
+    pqkv = linear(pooled, attn.qkv.weight, attn.qkv.bias).contiguous()
+    res = {"kernel_ms": cuda_ms(lambda: ba.band_attention_kernel(
+        qkv, pqkv, heads, win, exp)),
+        "k3_layer_ms": cuda_ms(lambda: tfocal.window_attention(*args))}
+    out = ba.band_attention_kernel(qkv, pqkv, heads, win, exp)
+    nk = x.shape[1] * ba.slot_offsets(*win, *exp)[0].shape[0]
+    flops = 4 * out.shape[0] * out.shape[1] * nk * out.shape[2]
+    res["kernel_bound_ms"], res["kernel_bound_by"] = roofline(
+        [qkv, pqkv], [out], [(flops, peak(x))])
+    del qkv, pqkv, out
+    torch.cuda.empty_cache()
+    res["parity"] = {"serving": band_parity(args)}
+    block, x2, pooled2 = ea.make_block(dev, b=2, h=HQ_MAP[0] // 3,
+                                       w=HQ_MAP[1] // 3)
+    res["parity"]["864x480"] = band_parity((block.attn, x2, pooled2,
+                                            *args[3:]))
+    return res
 
 
 def drive_experiments():
@@ -1554,6 +1642,24 @@ def main():
     if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
             and any(op.startswith("UTMALDG") for op in ops)):
         raise AssertionError(f"f32 K1 is not on TF32 wgmma + TMA: {ops}")
+    # K3 keeps its SASS with the consumer loop it shares with E2; E2 runs
+    # that loop on wgmma, fed by cp.async (LDGSTS), and mma.sync is gone
+    hist = sass_histograms(lib_path, ["focal_attention_wgmma_kernel"])
+    k3_sass = sass_digest(hist["focal_attention_wgmma_kernel"])
+    log(f"bf16 K3 SASS histogram: {json.dumps(k3_sass)}")
+    if k3_sass != K3_SASS:
+        raise AssertionError(f"bf16 K3's SASS changed: {k3_sass} != "
+                             f"{K3_SASS}: "
+                             f"{json.dumps(hist['focal_attention_wgmma_kernel'])}")
+    ops = sass_counts(lib_path, "band_attention_kernel",
+                      ("HGMMA", "LDGSTS", "HMMA"))
+    log(f"E2 SASS opcodes: {json.dumps(ops)}")
+    if not (ops["HGMMA"] and ops["LDGSTS"]) or ops["HMMA"]:
+        raise AssertionError(f"E2 is not on wgmma fed by cp.async: {ops}")
+    csrc = os.path.join(ROOT, CSRC)
+    if any("flash_mma" in name or "flash_mma" in open(
+            os.path.join(csrc, name)).read() for name in os.listdir(csrc)):
+        raise AssertionError("flash_mma is still in the kernel sources")
     t0 = phase_end("build", t0)
 
     # 3. kernels against their plain versions
@@ -1685,8 +1791,10 @@ def main():
     kernels = []
     k1_keys = ("gemm_ms", "gemm_ms_f32", "peak_mib", "peak_mib_f32",
                "max_abs_err_1xtf32")
+    e2_keys = ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
+               "k3_layer_ms", "parity")
     extra = ("ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
-             "library_ms_f32", "bf16_rel_err", *k1_keys)
+             "library_ms_f32", "bf16_rel_err", *k1_keys, *e2_keys)
     hq_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_f32",
                "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
                "library_ms_f32",

@@ -5,166 +5,259 @@
 // (built by _build, pallas_call at :107). On the TPU a key gather is a
 // slow row-issue take, so that kernel received overlapping row bands of the
 // wrap-padded k/v maps (bulk DMA) and assembled each window's keys from
-// static rectangles of the band into VMEM. A Hopper thread reads any
-// address, so here there are no bands either: the static geometry is a
-// per-slot (dy, dx) offset table (kernels/band_attention.py:slot_offsets:
-// own window, the rolled rectangles of tfocal._rolled_rects, the pooled
-// unfold window), and each key tile's 64 row addresses are computed from it
-// per block:
-//   own / rolled:  token ((wy*wh + dy) mod H, (wx*ww + dx) mod W) of the
-//                  qkv map, the torch.roll wrap;
-//   pooled:        cell (wy + dy, wx + dx) of the pooled qkv map, or a zero
-//                  key with bias -100 outside the grid.
+// static rectangles of the band into VMEM. A Hopper block gathers rows
+// itself, so here there are no bands: the static geometry is a per-window
+// table of source rows and slot biases (kernels/band_attention.py
+// slot_tables), and key j of a window is slot j % S of frame j / S:
+//   own / rolled slots:  token y*W + x of the frame in the (B, T, H, W, 3C)
+//                        qkv map (the torch.roll wrap is in the table);
+//   pooled slots:        cell py*nWw + px of the (B, nWh, nWw, T, 3C)
+//                        pooled qkv map, or a zero key (-1) with bias -100
+//                        outside the grid.
 // Every key of a frame with frame_valid false gets bias -1e9; keys past the
-// end get -inf. q, k and v rows are read straight from the (B, T, H, W, 3C)
-// output of the qkv GEMM (and the pooled (B, nWh, nWw, T, 3C) one): each
-// row is a contiguous 256-byte run, so no partition, roll or gather copy
-// exists. The 1/sqrt(hd) scale is folded into q as it loads, rounded to
-// bf16 as the port's q * hd**-0.5 is.
+// end get -inf. q, k and v rows are read straight from the maps (each row
+// a contiguous 256-byte run), so no partition, roll or gather copy exists.
+// The 1/sqrt(hd) scale is folded into q in shared memory and rounded to
+// bf16, as the port's q * hd**-0.5 is.
 //
-// The product loop (flash_mma.cuh) is the one K3's bf16 kernel ran on
-// before it moved to wgmma: one block per (64-query tile,
-// head, b*nWin + window), 4 warps, mma.sync m16n8k16 with an online
-// softmax in registers. What bounds it on the H100 at the serving shape
-// (B=14, T=17, 16 windows, 4 heads, 765 queries, 17*210 keys, hd 128): the
-// ~1.26 TFLOP of q.k and p.v, 24% more than K3's deduplicated 765 +
-// 17*125 keys, against the k/v gather and partition copies it removes.
+// What bounds it on the H100: the tensor cores. At the serving shape (B=14,
+// T=17, 16 windows, 4 heads, 765 queries, 17*210 keys, hd 128) q.k and p.v
+// are 1.25 TFLOP, 1.27 ms at the dense bf16 rate, over the undeduplicated
+// key multiset (24% more keys than K3's 765 + 17*125); beside them the
+// softmax's 2.4e9 exponentials on the MUFU (~0.6 ms). The design is K3's
+// (focal_attention.cu, namespace hopper) with another producer:
+// * One block per (128-query tile, head, b*window), 3 warpgroups; the
+//   consumers are K3's, the same device function (attention_wgmma.cuh):
+//   Q 32 KB, a 2-stage ring of 128-key K and V tiles, 128-byte swizzled,
+//   full/empty mbarriers. ~163 KB of shared memory: one block per SM.
+// * Hopper's TMA has no row gather, so the producer warpgroup (setmaxnreg
+//   24, as K3's) issues cp.async copies: thread r works out the source of
+//   row r of the tile (one table lookup; frame and slot advance by 128 a
+//   tile, no division), and 16 lanes then copy one 256-byte row, each
+//   16-byte chunk c to its swizzled place c ^ (r & 7) within its 64-dim
+//   half, the rows' pointers passed between lanes by shuffles. So a warp
+//   instruction reads two whole rows. A zero key, or a row past the end,
+//   is the zero-fill form. The tile's 128 biases come by 4-byte cp.async
+//   from the slot bias table (or its -1e9 / -inf tail), so the consumers
+//   read them from shared memory as K3's do. Every producer thread's
+//   copies complete on the stage's full barrier through
+//   cp.async.mbarrier.arrive.noinc (initialized with the 128 producers).
+// * cp.async writes through the generic proxy and wgmma reads through the
+//   async proxy, so a consumer fences (fence.proxy.async) after each full
+//   barrier; Q is scaled in place by its consumer warpgroup, fenced, and
+//   joined by a named barrier before the first wgmma.
 #include <cmath>
+#include <cstdint>
 
+#include "attention_wgmma.cuh"
 #include "common.cuh"
-#include "flash_mma.cuh"
+#include "hopper.cuh"
 
 namespace e2fgvi {
+namespace hopper {
 
-constexpr int kBandSmemBase = 3 * mma::kTileBytes + mma::kBK * 4 +
-                              mma::kBK * (int)sizeof(void*);
+struct BandParams {
+  const bf16* qkv;              // (B, T, H, W, 3C)
+  const bf16* pqkv;             // (B, nWh, nWw, T, 3C)
+  const int* src;               // (nWin, S) source rows, -1: a zero key
+  const float* bias;            // (nWin, S) slot biases, then -1e9, -inf
+  const unsigned char* fvalid;  // (B, T)
+  bf16* out;                    // (B*nWin, T*wh*ww, C)
+  int T, H, W, heads, wh, ww, nwh, nww, S, n_fine;
+  float scale;                  // 1/sqrt(hd)
+};
 
-__global__ void __launch_bounds__(mma::kThreads)
-band_attention_kernel(const mma::bf16* __restrict__ qkv,
-                      const mma::bf16* __restrict__ pqkv,
-                      const int2* __restrict__ slots,
-                      const unsigned char* __restrict__ fvalid,
-                      mma::bf16* __restrict__ out, int T, int H, int W,
-                      int heads, int wh, int ww, int nwh, int nww, int S,
-                      int n_fine, float scale) {
-  using mma::bf16;
-  using mma::kBK;
-  using mma::kBQ;
-  using mma::kHD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBQ * mma::kLd;
-  bf16* Vs = Ks + kBK * mma::kLd;
-  const bf16** Kp = reinterpret_cast<const bf16**>(Vs + kBK * mma::kLd);
-  float* Bs = reinterpret_cast<float*>(Kp + kBK);
-  int2* Sl = reinterpret_cast<int2*>(Bs + kBK);
+constexpr int kBandQOff = 0;
+constexpr int kBandKOff = kBandQOff + kTileBytes;
+constexpr int kBandVOff = kBandKOff + kStages * kTileBytes;
+constexpr int kBandBiasOff = kBandVOff + kStages * kTileBytes;
+constexpr int kBandBarOff = kBandBiasOff + kStages * kBK * 4;
+constexpr int kBandBars = 1 + 2 * kStages;   // q full, full[], empty[]
+// the window's source rows (S ints), then the batch element's frame flags
+constexpr int kBandTabOff = kBandBarOff + 8 * kBandBars;
+// + 1 KB to align the base to the 128-byte swizzle's 1024-byte period
+constexpr int kBandSmemBase = kBandTabOff + 1024;
+
+// The warp's 32 rows of a 128-row tile into their swizzled places: lane rr
+// holds the source of row wrow + rr (null for a zero row); 16 lanes copy
+// one 256-byte row. With dv, the row's V (vstep elements on) goes to the
+// same place of the V tile at dv.
+template <bool KV>
+__device__ __forceinline__ void gather_rows(uint32_t dk, uint32_t dv,
+                                            const bf16* row, int wrow,
+                                            int lane, int vstep,
+                                            const bf16* any) {
+  const int cc = lane & 15;
+  const uint32_t half = (cc >> 3) * kHalf;
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int rr = 2 * i + (lane >> 4);
+    const bf16* p = reinterpret_cast<const bf16*>(__shfl_sync(
+        0xffffffffu, reinterpret_cast<unsigned long long>(row), rr));
+    const int r = wrow + rr;
+    const uint32_t off = half + r * 128 + (((cc & 7) ^ (r & 7)) << 4);
+    const uint32_t n = p != nullptr ? 16 : 0;
+    cp_async16(dk + off, p != nullptr ? p + cc * 8 : any, n);
+    if (KV) cp_async16(dv + off, p != nullptr ? p + vstep + cc * 8 : any, n);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+band_attention_kernel(const __grid_constant__ BandParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base + kBandQOff, sK = base + kBandKOff;
+  const uint32_t sV = base + kBandVOff, sB = base + kBandBiasOff;
+  const float* bias_s = reinterpret_cast<const float*>(smem + kBandBiasOff);
+  const uint32_t q_full = base + kBandBarOff;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * kStages;
+  int* src_s = reinterpret_cast<int*>(smem + kBandTabOff);
+  unsigned char* fv_s = smem + kBandTabOff + 4 * p.S;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
-  const int bw = blockIdx.z;                    // b * nWin + wy * nwx + wx
-  const int nwx = W / ww, nwin = (H / wh) * nwx;
-  const int b = bw / nwin, w = bw % nwin;
-  const int wy = w / nwx, wx = w % nwx;
-  const int C = heads * kHD;
-  const long long ld = 3LL * C;                 // qkv elements per token
-  const int nwa = wh * ww, nq = T * nwa, nk = T * S;
+  const int bw = blockIdx.z;               // b * nwin + wy * nwx + wx
+  const int nwx = p.W / p.ww, nwin = (p.H / p.wh) * nwx;
+  const int b = bw / nwin, w = bw - b * nwin;
+  const int nq = p.T * p.wh * p.ww, nk = p.T * p.S;
+  const int tiles = (nk + kBK - 1) / kBK;
 
-  for (int i = tid; i < S; i += mma::kThreads) Sl[i] = slots[i];
-
-  // the block's 64 queries, scaled as they load
-  for (int c = tid; c < kBQ * (kHD / 8); c += mma::kThreads) {
-    const int r = c / (kHD / 8), cc = c % (kHD / 8);
-    const int n = q0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (n < nq) {
-      const int t = n / nwa, rem = n % nwa;
-      const long long tok =
-          (((long long)b * T + t) * H + wy * wh + rem / ww) * W + wx * ww +
-          rem % ww;
-      v = *reinterpret_cast<const uint4*>(qkv + tok * ld + h * kHD + cc * 8);
-      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 f = __bfloat1622float2(p2[k]);
-        p2[k] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-      }
+  if (tid == 0) {
+    mbar_init(q_full, 128);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 128);
+      mbar_init(empty0 + 8 * s, kConsumers);
     }
-    *reinterpret_cast<uint4*>(Qs + r * mma::kLd + cc * 8) = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  mma::Flash f;
-  f.start(Qs);
 
-  for (int j0 = 0; j0 < nk; j0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    if (tid < kBK) {
-      const int jj = j0 + tid;
-      const bf16* kp = nullptr;
-      float bj = -INFINITY;
-      if (jj < nk) {
-        const int t = jj / S, s = jj % S;
-        const int2 d = Sl[s];
-        bj = 0.f;
-        if (s < n_fine) {
-          const int yy = ((wy * wh + d.x) % H + H) % H;
-          const int xx = ((wx * ww + d.y) % W + W) % W;
-          kp = qkv + ((((long long)b * T + t) * H + yy) * W + xx) * ld;
-        } else {
-          const int py = wy + d.x, px = wx + d.y;
-          if (py >= 0 && py < nwh && px >= 0 && px < nww) {
-            kp = pqkv + ((((long long)b * nwh + py) * nww + px) * T + t) * ld;
-          } else {
-            bj = -100.f;                        // zero key outside the grid
-          }
-        }
-        if (kp != nullptr) kp += C + h * kHD;
-        if (!fvalid[(long long)b * T + t]) bj = -1e9f;
-      }
-      Kp[tid] = kp;
-      Bs[tid] = bj;
+  if (tid < 128) {
+    // producer warpgroup: every thread issues copies
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    for (int i = tid; i < p.S; i += 128) src_s[i] = p.src[w * p.S + i];
+    for (int i = tid; i < p.T; i += 128) fv_s[i] = p.fvalid[b * p.T + i];
+    named_bar_sync(1, 128);
+    const int lane = tid & 31, wrow = tid & ~31;
+    const int C = p.heads * kHD;
+    const long long ld = 3LL * C;            // qkv elements per token
+
+    // Q: row tid is query q0 + tid, (frame, y, x) of the window
+    const bf16* row = nullptr;
+    if (q0 + tid < nq) {
+      const int nwa = p.wh * p.ww, n = q0 + tid;
+      const int t = n / nwa, rem = n - t * nwa;
+      const int y = (w / nwx) * p.wh + rem / p.ww;
+      const int x = (w - (w / nwx) * nwx) * p.ww + rem % p.ww;
+      row = p.qkv + ((((long long)b * p.T + t) * p.H + y) * p.W + x) * ld +
+            h * kHD;
     }
-    __syncthreads();
-    mma::load_tile(Ks, [&](int r) -> const bf16* { return Kp[r]; });
-    mma::load_tile(Vs, [&](int r) -> const bf16* {
-      return Kp[r] != nullptr ? Kp[r] + C : nullptr;
-    });
-    __syncthreads();
-    f.tile(Ks, Vs, Bs);
+    gather_rows<false>(sQ, 0, row, wrow, lane, 0, p.qkv);
+    cp_async_arrive_noinc(q_full);
+
+    // keys: row tid of tile j is key j * kBK + tid, slot s_r of frame t_r
+    int t_r = tid / p.S, s_r = tid - t_r * p.S;
+    const float* neg = p.bias + nwin * p.S;  // -1e9 (invalid frame), -inf
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kStages;
+      row = nullptr;
+      const float* bsrc = neg + 1;
+      if (j * kBK + tid < nk) {
+        const int sr = src_s[s_r];
+        if (sr >= 0) {
+          row = s_r < p.n_fine
+                    ? p.qkv + (((long long)b * p.T + t_r) * p.H * p.W + sr) *
+                                  ld
+                    : p.pqkv + (((long long)b * p.nwh * p.nww + sr) * p.T +
+                                t_r) * ld;
+          row += C + h * kHD;
+        }
+        bsrc = fv_s[t_r] ? p.bias + w * p.S + s_r : neg;
+      }
+      s_r += kBK;
+      while (s_r >= p.S) {
+        s_r -= p.S;
+        ++t_r;
+      }
+      mbar_wait(empty0 + 8 * s, ((j / kStages) & 1) ^ 1);
+      cp_async4(sB + s * kBK * 4 + tid * 4, bsrc);
+      gather_rows<true>(sK + s * kTileBytes, sV + s * kTileBytes, row, wrow,
+                        lane, C, p.qkv);
+      cp_async_arrive_noinc(full0 + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    attention_consumer(
+        tid, sQ, sK, sV, bias_s, full0, empty0, tiles, p.out, bw, q0, nq,
+        p.heads, h,
+        [&](int c) {
+          // this warpgroup's 64 rows of Q, scaled and rounded in place
+          mbar_wait(q_full, 0);
+          const int u = tid - 128 * (c + 1);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int k = u + 128 * i;
+            const int r = 64 * c + (k >> 4), x = k & 15;
+            uint4* q = reinterpret_cast<uint4*>(smem + kBandQOff +
+                                                (x >> 3) * kHalf + r * 128 +
+                                                (x & 7) * 16);
+            uint4 v = *q;
+            __nv_bfloat162* v2 = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(v2[e]);
+              v2[e] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
+            }
+            *q = v;
+          }
+          fence_proxy_async();
+          named_bar_sync(2 + c, 128);
+        },
+        [] { fence_proxy_async(); });
   }
-  f.finish(out, bw, q0, nq, C, h * kHD);
 }
 
+}  // namespace hopper
 }  // namespace e2fgvi
 
 // Plain C entry point, loaded with ctypes (kernels/build.py). Makes `device`
 // current, launches on `stream` and returns cudaGetLastError(); bfloat16
-// only, hd must be 128. slots: (S, 2) int32 (dy, dx); fvalid: (B, T) uint8.
+// only, hd must be 128. src: (nWin, S) int32 source rows; bias: nWin * S
+// float32 slot biases, then -1e9 and -inf; fvalid: (B, T) uint8.
 extern "C" int e2fgvi_band_attention(const void* qkv, const void* pqkv,
-                                     const void* slots, const void* fvalid,
-                                     void* out, int B, int T, int H, int W,
-                                     int heads, int wh, int ww, int nwh,
-                                     int nww, int S, int n_fine, int hd,
-                                     float scale, int device, void* stream) {
-  using e2fgvi::mma::bf16;
-  if (hd != e2fgvi::mma::kHD) return (int)cudaErrorInvalidValue;
+                                     const void* src, const void* bias,
+                                     const void* fvalid, void* out, int B,
+                                     int T, int H, int W, int heads, int wh,
+                                     int ww, int nwh, int nww, int S,
+                                     int n_fine, int hd, float scale,
+                                     int device, void* stream) {
+  using e2fgvi::hopper::bf16;
+  namespace hp = e2fgvi::hopper;
+  if (hd != e2fgvi::kHD || S <= 0 || T <= 0)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const int smem = e2fgvi::kBandSmemBase + S * (int)sizeof(int2);
+  const int smem = hp::kBandSmemBase + 4 * S + T;
   cudaError_t err = cudaFuncSetAttribute(
-      e2fgvi::band_attention_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      hp::band_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   const int nq = T * wh * ww;
   const int nwin = (H / wh) * (W / ww);
   if (B == 0 || nq == 0) return (int)cudaGetLastError();
-  const dim3 grid((nq + e2fgvi::mma::kBQ - 1) / e2fgvi::mma::kBQ, heads,
-                  B * nwin);
-  e2fgvi::band_attention_kernel<<<grid, e2fgvi::mma::kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(pqkv),
-      static_cast<const int2*>(slots),
-      static_cast<const unsigned char*>(fvalid), static_cast<bf16*>(out), T,
-      H, W, heads, wh, ww, nwh, nww, S, n_fine, scale);
+  const hp::BandParams p{static_cast<const bf16*>(qkv),
+                         static_cast<const bf16*>(pqkv),
+                         static_cast<const int*>(src),
+                         static_cast<const float*>(bias),
+                         static_cast<const unsigned char*>(fvalid),
+                         static_cast<bf16*>(out), T, H, W, heads, wh, ww,
+                         nwh, nww, S, n_fine, scale};
+  const dim3 grid((nq + hp::kBQ - 1) / hp::kBQ, heads, B * nwin);
+  hp::band_attention_kernel<<<grid, hp::kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }

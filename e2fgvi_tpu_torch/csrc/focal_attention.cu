@@ -56,12 +56,11 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attention_wgmma.cuh"
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace e2fgvi {
-
-constexpr int kHD = 128;  // head width
 
 // ---------------------------------------------------------------------------
 // float32: 3xTF32 flash loop
@@ -397,18 +396,11 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 // Not done yet: FA3's ping-pong between the two consumers and overlapping
 // one tile's softmax with the next tile's Q K^T.
 // The mbarrier, TMA and wgmma helpers are in hopper.cuh, shared with the
-// bf16 K1 (deform.cu).
+// bf16 K1 (deform.cu); the consumer loop is attention_wgmma.cuh's, shared
+// with E2 (band_attention.cu), whose producer gathers the key rows itself.
 // ---------------------------------------------------------------------------
 namespace hopper {
 
-constexpr int kBQ = 128;                 // queries per block
-constexpr int kBK = 128;                 // keys per tile
-constexpr int kStages = 2;
-constexpr int kThreads = 384;            // producer + 2 consumer warpgroups
-constexpr int kConsumers = 256;
-constexpr int kBox = 64;                 // dims per TMA box: 128 bytes
-constexpr int kHalf = 128 * kBox * 2;    // one 128-row box, 16 KB
-constexpr int kTileBytes = 2 * kHalf;    // a 128 x 128 bf16 tile, 32 KB
 constexpr int kQOff = 0;
 constexpr int kKOff = kQOff + kTileBytes;
 constexpr int kVOff = kKOff + kStages * kTileBytes;
@@ -417,17 +409,6 @@ constexpr int kBarOff = kBiasOff + kStages * kBK * 4;
 constexpr int kBars = 1 + 2 * kStages;   // q full, full[], empty[]
 // + 1 KB to align the base to the 128-byte swizzle's 1024-byte period
 constexpr int kSmemBytes = kBarOff + 8 * kBars + 1024;
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 focal_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -488,116 +469,9 @@ focal_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int c = tid / 128 - 1;           // consumer: query rows 64c ..
-    const int warp = (tid / 32) & 3, lane = tid & 31;
-    const int g = lane >> 2, t = lane & 3;
-    constexpr float kLog2e = 1.4426950408889634f;
-
-    // A operand: this warpgroup's 64 rows of Q, row r at 128 bytes in each
-    // 64-dim box; k-step kk reads dims 16kk.. (box kk / 4, byte 32 (kk % 4))
-    const uint32_t qa = sQ + c * 64 * 128;
-    float sc[64], o[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = o[i] = 0.f;
-    float m_r[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (scaled by log2 e)
-    float l_r[2] = {0.f, 0.f};
-
-    mbar_wait(q_full, 0);
-    for (int j = 0; j < tiles; ++j) {
-      const int s = j % kStages;
-      mbar_wait(full0 + 8 * s, (j / kStages) & 1);
-      const uint32_t ks = sK + s * kTileBytes, vs = sV + s * kTileBytes;
-
-      // S (64 x 128 keys) = Q K^T
-      fence_regs(sc);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kHD / 16; ++kk) {
-        const uint32_t off = (kk >> 2) * kHalf + (kk & 3) * 32;
-        wgmma_ss(sc, desc_sw128(qa + off, 16, 1024),
-                 desc_sw128(ks + off, 16, 1024), kk > 0);
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(sc);
-
-      // sc[4i + e]: row g (e < 2) or g + 8, key 8i + 2t + (e & 1); logits
-      // go to base 2 here: exp(x - m) = 2^(x log2e - m log2e)
-      const float* bt = bias_s + s * kBK;
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * t);
-        sc[4 * i] = (sc[4 * i] + bb.x) * kLog2e;
-        sc[4 * i + 1] = (sc[4 * i + 1] + bb.y) * kLog2e;
-        sc[4 * i + 2] = (sc[4 * i + 2] + bb.x) * kLog2e;
-        sc[4 * i + 3] = (sc[4 * i + 3] + bb.y) * kLog2e;
-        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * i], sc[4 * i + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m_r[r], mx[r]);
-        alpha[r] = exp2_approx(m_r[r] - m_new);
-        m_r[r] = m_new;
-        l_r[r] *= alpha[r];
-      }
-      // P, rounded to bf16 as the A operand of P V: k-step kk covers keys
-      // 16kk .. 16kk + 15, i.e. key blocks 2kk and 2kk + 1
-      uint32_t pa[kBK / 16][4];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float p0 = exp2_approx(sc[4 * i] - m_r[0]);
-        const float p1 = exp2_approx(sc[4 * i + 1] - m_r[0]);
-        const float p2 = exp2_approx(sc[4 * i + 2] - m_r[1]);
-        const float p3 = exp2_approx(sc[4 * i + 3] - m_r[1]);
-        l_r[0] += p0 + p1;
-        l_r[1] += p2 + p3;
-        pa[i >> 1][(i & 1) * 2] = pack_bf16(p0, p1);
-        pa[i >> 1][(i & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        o[4 * i] *= alpha[0];
-        o[4 * i + 1] *= alpha[0];
-        o[4 * i + 2] *= alpha[1];
-        o[4 * i + 3] *= alpha[1];
-      }
-
-      // O (64 x 128 dims) += P V; V's k-step kk is keys 16kk.., 2 KB on.
-      // MN-major: 64 dims in a 128-byte row, the next 64 dims one box
-      // (16 KB) on (LBO), the next 8 keys 1 KB on (SBO)
-      fence_regs(o);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_rs(o, pa[kk], desc_sw128(vs + kk * 2048, kHalf, 1024));
-      wg_commit();
-      wg_wait_all();
-      fence_regs(o);
-      mbar_arrive(empty0 + 8 * s);
-    }
-
-    // o[4i + e]: row g (e < 2) or g + 8, dim 8i + 2t + (e & 1)
-    const int ldo = heads * kHD;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-      l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-      const int row = q0 + c * 64 + warp * 16 + g + 8 * r;
-      if (row >= nq) continue;
-      const float inv = 1.f / l_r[r];
-      bf16* dst = out + ((long long)bw * nq + row) * ldo + h * kHD + 2 * t;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i) =
-            __floats2bfloat162_rn(o[4 * i + 2 * r] * inv,
-                                  o[4 * i + 2 * r + 1] * inv);
-      }
-    }
+    attention_consumer(
+        tid, sQ, sK, sV, bias_s, full0, empty0, tiles, out, bw, q0, nq,
+        heads, h, [&](int) { mbar_wait(q_full, 0); }, [] {});
   }
 }
 

@@ -1,9 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: the bf16 K3
-// (focal_attention.cu) and K1 in both dtypes (deform.cu).
+// (focal_attention.cu), E2 (band_attention.cu) and K1 in both dtypes
+// (deform.cu).
 //
 // - mbarriers with a wait that traps after ~2^33 clocks, so a broken
 //   pipeline fails the launch instead of hanging the card;
 // - TMA tile and bulk copies that complete on an mbarrier;
+// - cp.async row copies (zero-filling where there is no source) whose
+//   completion arrives on an mbarrier, the proxy fence that lets wgmma
+//   read what they wrote, and named barriers for one warpgroup;
 // - wgmma m64n128k16 (bf16 in, f32 accumulate) with A from shared memory
 //   or registers, wgmma m64n128k8 (tf32 in, both operands K-major in
 //   shared memory), their 128-byte-swizzle descriptor and the group
@@ -84,6 +88,41 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// 16 bytes from src to shared memory at dst; src_bytes 0 writes zeros and
+// reads nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread has issued so far
+// has landed; .noinc: the arrival counts toward the barrier's initial
+// count, so a barrier fed by N threads is initialized with N
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+
+// orders this thread's view of shared memory written through the generic
+// proxy (stores, cp.async) before later async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) among `threads` threads
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle; lbo/sbo in bytes

@@ -32,15 +32,16 @@ T, HH, WW, C = 17, 20, 36, 512
 HEADS, WIN, EXP = 4, (5, 9), (2, 4)
 
 
-def make_block(dev, b=14, t=T, c=C, seed=0):
+def make_block(dev, b=14, t=T, c=C, seed=0, h=HH, w=WW):
     """(block, x, pooled): a bfloat16 inference block with N(0, 0.02)
-    weights, normal tokens and their pooled tokens, made on `dev`."""
+    weights, normal tokens on an h x w grid and their pooled tokens, made
+    on `dev`."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     block = tfocal.TemporalFocalTransformerBlock(c, WIN)
     block.init_weights(g)
     block = block.to(dev, torch.bfloat16).eval().requires_grad_(False)
     gd = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((b, t, HH, WW, c), generator=gd, device=dev).bfloat16()
+    x = torch.randn((b, t, h, w, c), generator=gd, device=dev).bfloat16()
     return block, x, tfocal._pool_level(block, x, WIN)
 
 

@@ -18,9 +18,16 @@ Every key of a frame whose `frame_valid` is False gets bias -1e9. The key
 multiset is the gather path's before deduplication, so the softmax is the
 same function (no ln(multiplicity) biases here).
 
+The kernel addresses keys through `slot_tables`: per window, each slot's
+source row within a frame (a token y*W + x of the qkv map, a pooled cell,
+or -1 for a zero key) and its bias (0, or -100 for the zero key); key j of
+a window is slot j % S of frame j // S.
+
 `band_attention` takes the plain version for tensors on the CPU, and only
-then; for CUDA tensors it launches the kernel (bfloat16, head width 128)
-or raises. The kernel is forward-only. `LAUNCHES` counts its launches.
+then; for other tensors it checks the kernel's inputs first (bfloat16,
+head width 128, tiled geometry, frame_valid (B, T); `ValueError`, before
+any CUDA call) and launches the kernel or raises. The kernel is
+forward-only. `LAUNCHES` counts its launches.
 """
 
 from functools import lru_cache
@@ -57,6 +64,40 @@ def slot_offsets(wh, ww, eh, ew):
     pooled = [(ay - pp[0], ax - pp[1])
               for ay in range(pk[0]) for ax in range(pk[1])]
     return np.asarray(own + rolled + pooled, np.int32), len(own + rolled)
+
+
+@lru_cache(maxsize=8)
+def slot_tables(h, w, wh, ww, eh, ew):
+    """The kernel's per-window key addressing: (src (nWin, S) int32, bias
+    (nWin, S) float32, n_fine). src is the slot's source row within a
+    frame: token y*w + x of the fine map for the first n_fine slots (own
+    and rolled, the torch.roll wrap applied), pooled cell py*nWw + px for
+    the pooled slots, -1 where the pooled cell lies outside the grid (a
+    zero key); bias is 0, or -100 for those zero keys."""
+    offsets, n_fine = slot_offsets(wh, ww, eh, ew)
+    nwy, nwx = h // wh, w // ww
+    wy, wx = np.divmod(np.arange(nwy * nwx), nwx)
+    dy, dx = offsets[None, :, 0], offsets[None, :, 1]
+    fine = ((wy[:, None] * wh + dy) % h) * w + (wx[:, None] * ww + dx) % w
+    py, px = wy[:, None] + dy, wx[:, None] + dx
+    inside = (py >= 0) & (py < nwy) & (px >= 0) & (px < nwx)
+    pooled = np.where(inside, py * nwx + px, -1)
+    is_fine = np.arange(len(offsets))[None, :] < n_fine
+    src = np.where(is_fine, fine, pooled).astype(np.int32)
+    bias = np.where(is_fine | inside, 0.0, -100.0).astype(np.float32)
+    return src, bias, n_fine
+
+
+@lru_cache(maxsize=8)
+def _device_tables(h, w, wh, ww, eh, ew, device):
+    """slot_tables on `device`: (src, the biases flattened with -1e9 (a
+    key of an invalid frame) and -inf (past the keys' end) after them,
+    where the kernel's producer copies a key's bias from, n_fine)."""
+    src, bias, n_fine = slot_tables(h, w, wh, ww, eh, ew)
+    tail = np.asarray([-1e9, -np.inf], np.float32)
+    return (torch.as_tensor(src, device=device),
+            torch.as_tensor(np.concatenate([bias.reshape(-1), tail]),
+                            device=device), n_fine)
 
 
 def _check_geometry(x, pooled, num_heads, window_size):
@@ -139,6 +180,60 @@ def band_attention_plain(attn, x, pooled, num_heads, window_size,
     return out.to(x.dtype)
 
 
+def check_kernel_inputs(x, pooled, num_heads, window_size,
+                        frame_valid=None):
+    """Raise ValueError unless the kernel takes these inputs: tiled
+    geometry, bfloat16 x and pooled, head width 128, frame_valid (B, T).
+    Reads shapes and dtypes only, so it runs before any CUDA call."""
+    _check_geometry(x, pooled, num_heads, window_size)
+    b, t = x.shape[:2]
+    hd = x.shape[-1] // num_heads
+    if x.dtype != torch.bfloat16 or pooled.dtype != x.dtype:
+        raise ValueError(f"band_attention: the kernel takes bfloat16 x and "
+                         f"pooled, got {x.dtype}, {pooled.dtype}")
+    if hd != HEAD_DIM:
+        raise ValueError(f"band_attention: head dim {hd}, the kernel takes "
+                         f"{HEAD_DIM}")
+    if frame_valid is not None and tuple(frame_valid.shape) != (b, t):
+        raise ValueError(f"band_attention: frame_valid "
+                         f"{tuple(frame_valid.shape)} is not (B, T) = "
+                         f"{(b, t)}")
+
+
+def band_attention_kernel(qkv, pqkv, num_heads, window_size, expand_size,
+                          frame_valid=None):
+    """The E2 kernel alone: attention of each window's queries over its
+    in-place keys. qkv: (B, T, H, W, 3C) and pqkv: (B, nWh, nWw, T, 3C),
+    the qkv projections of the tokens and the pooled tokens, bfloat16 on
+    one CUDA device. Returns (B*nWin, T*wh*ww, C), heads side by side,
+    before the proj GEMM."""
+    b, t, h, w, c3 = qkv.shape
+    c = c3 // 3
+    check_kernel_inputs(qkv[..., :c], pqkv[..., :c], num_heads, window_size,
+                        frame_valid)
+    wh, ww = window_size
+    src, bias, n_fine = _device_tables(h, w, wh, ww, *expand_size,
+                                       qkv.device)
+    if frame_valid is None:
+        fv = torch.ones((b, t), dtype=torch.uint8, device=qkv.device)
+    else:
+        fv = frame_valid.to(device=qkv.device, dtype=torch.uint8).contiguous()
+    check_cuda_inputs("band_attention", qkv, pqkv, src, bias, fv)
+    if any(z.data_ptr() % 16 for z in (qkv, pqkv)):
+        raise ValueError("band_attention: qkv maps must be 16-byte aligned")
+    nwin = (h // wh) * (w // ww)
+    out = torch.empty((b * nwin, t * wh * ww, c), dtype=qkv.dtype,
+                      device=qkv.device)
+    err = build.library().e2fgvi_band_attention(
+        qkv.data_ptr(), pqkv.data_ptr(), src.data_ptr(), bias.data_ptr(),
+        fv.data_ptr(), out.data_ptr(), b, t, h, w, num_heads, wh, ww,
+        pqkv.shape[1], pqkv.shape[2], src.shape[1], n_fine, HEAD_DIM,
+        float(HEAD_DIM ** -0.5), *build.stream_args(qkv))
+    build.check(err, "band_attention")
+    LAUNCHES["band_attention"] += 1
+    return out
+
+
 def band_attention(attn, x, pooled, num_heads, window_size, expand_size,
                    frame_valid=None):
     """Focal window attention with in-place key reads (E2).
@@ -146,45 +241,16 @@ def band_attention(attn, x, pooled, num_heads, window_size, expand_size,
     x: (B, T, H, W, C) normalized tokens; pooled: (B, nWh, nWw, T, C);
     frame_valid: optional (B, T) bool. Returns (B*nWin, T*wh*ww, C).
 
-    On CUDA: one GEMM makes the (B, T, H, W, 3C) qkv map and one the
+    On the card: one GEMM makes the (B, T, H, W, 3C) qkv map and one the
     pooled (B, nWh, nWw, T, 3C) map; the kernel reads q, k and v rows from
-    them in place (the 1/sqrt(hd) scale folded into q as it loads); the
+    them in place (the 1/sqrt(hd) scale folded into q once it lands); the
     proj GEMM follows."""
     if x.device.type == "cpu":
         return band_attention_plain(attn, x, pooled, num_heads, window_size,
                                     expand_size, frame_valid)
-    _check_geometry(x, pooled, num_heads, window_size)
-    b, t, h, w, c = x.shape
-    wh, ww = window_size
-    hd = c // num_heads
-    if x.dtype != torch.bfloat16 or pooled.dtype != x.dtype:
-        raise ValueError(f"band_attention: the kernel takes bfloat16 x and "
-                         f"pooled, got {x.dtype}, {pooled.dtype}")
-    if hd != HEAD_DIM:
-        raise ValueError(f"band_attention: head dim {hd}, the kernel takes "
-                         f"{HEAD_DIM}")
+    check_kernel_inputs(x, pooled, num_heads, window_size, frame_valid)
     qkv = linear(x, attn.qkv.weight, attn.qkv.bias).contiguous()
     pqkv = linear(pooled, attn.qkv.weight, attn.qkv.bias).contiguous()
-    offsets, n_fine = slot_offsets(wh, ww, *expand_size)
-    slots = torch.as_tensor(offsets, device=x.device)
-    if frame_valid is None:
-        fv = torch.ones((b, t), dtype=torch.uint8, device=x.device)
-    else:
-        fv = frame_valid.to(device=x.device, dtype=torch.uint8).contiguous()
-    check_cuda_inputs("band_attention", qkv, pqkv, slots, fv)
-    if fv.shape != (b, t):
-        raise ValueError(f"band_attention: frame_valid {tuple(fv.shape)} is "
-                         f"not (B, T) = {(b, t)}")
-    if any(z.data_ptr() % 16 for z in (qkv, pqkv)):
-        raise ValueError("band_attention: qkv maps must be 16-byte aligned")
-    nwin = (h // wh) * (w // ww)
-    out = torch.empty((b * nwin, t * wh * ww, c), dtype=x.dtype,
-                      device=x.device)
-    err = build.library().e2fgvi_band_attention(
-        qkv.data_ptr(), pqkv.data_ptr(), slots.data_ptr(), fv.data_ptr(),
-        out.data_ptr(), b, t, h, w, num_heads, wh, ww, pooled.shape[1],
-        pooled.shape[2], offsets.shape[0], n_fine, hd, float(hd ** -0.5),
-        *build.stream_args(x))
-    build.check(err, "band_attention")
-    LAUNCHES["band_attention"] += 1
+    out = band_attention_kernel(qkv, pqkv, num_heads, window_size,
+                                expand_size, frame_valid)
     return linear(out, attn.proj.weight, attn.proj.bias)

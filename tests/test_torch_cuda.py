@@ -587,26 +587,48 @@ def _attn_block(gen, b=2, t=3, h=10, w=18, c=256):
     return block, x, tfocal._pool_level(block, x, (5, 9))
 
 
-@pytest.mark.parametrize("frame_valid", [False, True])
-def test_band_attention_matches_plain_and_k3(gen, frame_valid):
+# (b, t, h, w, C, heads): ragged query and key tiles with the wrap at both
+# edges; one frame; the serving geometry (20x36 tokens, 16 windows) at b=1
+_BAND_GEOMS = {"b2_t3_10x18": (2, 3, 10, 18, 256, 2),
+               "t1": (2, 1, 10, 18, 256, 2),
+               "serving_b1": (1, 17, 20, 36, 512, 4)}
+
+
+@pytest.mark.parametrize("frame_valid", ["none", "partial", "element"])
+@pytest.mark.parametrize("geom", list(_BAND_GEOMS))
+def test_band_attention_matches_plain_and_k3(gen, geom, frame_valid):
+    """The kernel within 5e-2 of the scale of its plain version and of K3's
+    layer over the queries of valid frames. "element": batch element 0 has
+    no valid frame; its outputs (every key -1e9: a uniform softmax over
+    the undeduplicated keys, which K3's deduplicated panel does not share)
+    must be finite and equal the plain version's."""
     from e2fgvi_tpu_torch.models import tfocal
-    block, x, pooled = _attn_block(gen)
+    b, t, h, w, c, heads = _BAND_GEOMS[geom]
+    block, x, pooled = _attn_block(gen, b, t, h, w, c)
     fv = None
-    if frame_valid:
-        fv = torch.ones((2, 3), dtype=torch.bool, device="cuda")
-        fv[0, -1] = False
-        fv[1, -2:] = False
-    args = (block.attn, x, pooled, 2, (5, 9), (2, 4))
+    if frame_valid != "none":
+        fv = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        if frame_valid == "element":
+            fv[0] = False
+        else:
+            fv[0, -1] = False
+            fv[-1, :max(t - 2, 0)] = False
+    args = (block.attn, x, pooled, heads, (5, 9), (2, 4))
     before = ba.LAUNCHES["band_attention"]
     got = ba.band_attention(*args, frame_valid=fv).float()
     assert ba.LAUNCHES["band_attention"] == before + 1
+    assert torch.isfinite(got).all()
     want = ba.band_attention_plain(block.attn, x.float(), pooled.float(),
                                    *args[3:], frame_valid=fv).float()
     k3 = tfocal.window_attention(*args, frame_valid=fv).float()
-    if fv is not None:
-        valid = fv.repeat_interleave(45, 1).repeat_interleave(4, 0)[..., None]
-        got, want, k3 = (torch.where(valid, z, 0.0) for z in (got, want, k3))
     scale = want.abs().max()
+    nwin = (h // 5) * (w // 9)
+    if frame_valid == "element":
+        assert (got[:nwin] - want[:nwin]).abs().max() / scale < 5e-2
+    if fv is not None:
+        valid = fv.repeat_interleave(45, 1).repeat_interleave(nwin, 0)
+        got, want, k3 = (torch.where(valid[..., None], z, 0.0)
+                         for z in (got, want, k3))
     assert (got - want).abs().max() / scale < 5e-2
     assert (got - k3).abs().max() / scale < 5e-2
 

@@ -4,7 +4,7 @@ card.
 
     python3 tools/deform_ab.py --root <tree> --tag <name> [--out <dir>]
                                [--parts deform gather accuracy serve_f32
-                                        serve_bf16]
+                                        serve_bf16 band_attention]
     python3 tools/deform_ab.py --compare <dir>/<a>.pt <dir>/<b>.pt
     python3 tools/deform_ab.py --summarize <tree>_<pair>.jsonl ...
 
@@ -42,7 +42,14 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
   frames (chip_smoke phase 5), and HQ 864x480, one of 20 (phase 7):
   frames/s, stage ms a video and the peak device memory of the runs;
 - `serve_bf16`: the same in bfloat16 at max_batch 14: base, 3 videos of
-  70 frames (phase 5), and HQ 864x480, 2 of 70 (phase 7).
+  70 frames (phase 5), and HQ 864x480, 2 of 70 (phase 7);
+- `band_attention`: E2 on experiments.exp_attn_band_r04.make_block's
+  inputs (B=14, T=17, 20x36 tokens, C=512, 4 heads): its layer (`ms`:
+  the qkv GEMMs, the kernel, proj), the kernel alone on the layer's qkv
+  maps (`kernel_ms`; in a tree before band_attention_kernel, its entry
+  point called as that tree's wrapper calls it), K3's layer on the same
+  inputs (`k3_layer_ms`, tfocal.window_attention) and K3 alone on
+  chip_smoke.k3_inputs at base in bfloat16 (`k3_ms`).
 
 Every part also prints the SASS opcode histogram of its kernels
 (cuobjdump): load and store opcodes in full, the rest as a digest. The
@@ -59,7 +66,6 @@ first.
 """
 
 import argparse
-import hashlib
 import importlib.util
 import json
 import os
@@ -76,7 +82,9 @@ SASS = {"deform": ("deform_conv_tf32_kernel", "flow_warp_kernel",
                    "focal_attention_tf32_kernel"),
         "gather": ("row_gather_kernel", "bilinear4", "group_major_kernel"),
         "accuracy": ("deform_conv_tf32_kernel",), "serve_f32": (),
-        "serve_bf16": ()}
+        "serve_bf16": (),
+        "band_attention": ("band_attention_kernel",
+                           "focal_attention_wgmma_kernel")}
 SPLIT_CALLS = 200
 GATHER_ITERS = 50    # cuda_ms calls a median for the ~0.05 ms gathers
 # (kernel's ms, its library call's ms) keys of a result line
@@ -324,6 +332,61 @@ def run_serve_bf16(cs, tag, dev, saved):
                (("base", 3, 70, (240, 432)), ("hq", 2, 70, (480, 864))))
 
 
+def band_kernel_fn(qkv, pqkv, heads, window_size, expand_size):
+    """A call of the E2 kernel alone on the qkv maps; in a tree before
+    band_attention_kernel (the mma.sync kernel), its entry point with the
+    arguments that tree's wrapper gives it."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import band_attention as ba
+    from e2fgvi_tpu_torch.kernels import build
+    if hasattr(ba, "band_attention_kernel"):
+        return lambda: ba.band_attention_kernel(qkv, pqkv, heads,
+                                                window_size, expand_size)
+    b, t, h, w, c3 = qkv.shape
+    (wh, ww), c = window_size, c3 // 3
+    offsets, n_fine = ba.slot_offsets(wh, ww, *expand_size)
+    slots = torch.as_tensor(offsets, device=qkv.device)
+    fv = torch.ones((b, t), dtype=torch.uint8, device=qkv.device)
+    out = torch.empty((b * (h // wh) * (w // ww), t * wh * ww, c),
+                      dtype=qkv.dtype, device=qkv.device)
+    hd = c // heads
+
+    def launch():
+        build.check(build.library().e2fgvi_band_attention(
+            qkv.data_ptr(), pqkv.data_ptr(), slots.data_ptr(),
+            fv.data_ptr(), out.data_ptr(), b, t, h, w, heads, wh, ww,
+            pqkv.shape[1], pqkv.shape[2], offsets.shape[0], n_fine, hd,
+            float(hd ** -0.5), *build.stream_args(qkv)), "band_attention")
+        return out
+    return launch
+
+
+def run_band_attention(cs, tag, dev, saved):
+    import torch
+    from e2fgvi_tpu_torch.experiments import exp_attn_band_r04 as ea
+    from e2fgvi_tpu_torch.kernels import band_attention as ba
+    from e2fgvi_tpu_torch.kernels import focal_attention as fa
+    from e2fgvi_tpu_torch.models import tfocal
+    from e2fgvi_tpu_torch.ops.convs import linear
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    block, x, pooled = ea.make_block(dev)
+    attn = block.attn
+    args = (attn, x, pooled, ea.HEADS, ea.WIN, ea.EXP)
+    res = {"tag": tag, "shape": "base", "kernel": "band_attention"}
+    with torch.inference_mode():
+        qkv = linear(x, attn.qkv.weight, attn.qkv.bias).contiguous()
+        pqkv = linear(pooled, attn.qkv.weight, attn.qkv.bias).contiguous()
+        res["ms"] = cuda_ms(lambda: ba.band_attention(*args))
+        res["kernel_ms"] = cuda_ms(band_kernel_fn(qkv, pqkv, *args[3:]))
+        res["k3_layer_ms"] = cuda_ms(lambda: tfocal.window_attention(*args))
+        saved["band_attention"] = ba.band_attention(*args).cpu()
+        del qkv, pqkv
+        make_inputs, _, _ = cs.k3_inputs(dev, *SHAPES["base"])
+        k3_args = make_inputs(torch.bfloat16)
+        res["k3_ms"] = cuda_ms(lambda: fa.focal_attention(*k3_args))
+    print(json.dumps(res), flush=True)
+
+
 def measure(root, tag, out_dir, parts):
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -343,15 +406,14 @@ def measure(root, tag, out_dir, parts):
     kernels = [k for p in parts for k in SASS[p]]
     for k, c in cs.sass_histograms(lib, kernels).items():
         shown = {op: n for op, n in sorted(c.items())
-                 if op.startswith(("LD", "ST", "HGMMA", "UTMA"))}
-        digest = hashlib.sha256(json.dumps(sorted(c.items())).encode())
-        print(json.dumps({"tag": tag, "sass": k, "total": sum(c.values()),
-                          "digest": digest.hexdigest()[:12], "ops": shown}),
-              flush=True)
+                 if op.startswith(("LD", "ST", "HGMMA", "HMMA", "UTMA"))}
+        print(json.dumps({"tag": tag, "sass": k, **cs.sass_digest(c),
+                          "ops": shown}), flush=True)
     saved = {}
     runners = {"deform": run_deform, "gather": run_gather,
                "accuracy": run_accuracy, "serve_f32": run_serve_f32,
-               "serve_bf16": run_serve_bf16}
+               "serve_bf16": run_serve_bf16,
+               "band_attention": run_band_attention}
     for p in parts:
         runners[p](cs, tag, dev, saved)
     os.makedirs(out_dir, exist_ok=True)
