@@ -12,7 +12,10 @@ Phases, one line each (any failed check raises and exits nonzero):
               and UTMALDG (TMA loads); the bf16 K3's opcode histogram must
               be K3_SASS's (its consumer loop is shared with E2); E2 must
               hold HGMMA and LDGSTS (cp.async) and no HMMA (mma.sync), and
-              csrc/flash_mma.cuh must be gone
+              csrc/flash_mma.cuh must be gone; E5/E6's staged kernel
+              (band_staged_kernel) must stage by LDGSTS or UTMALDG and read
+              its corners by LDS (executable ones: cp.async's never-taken
+              @!PT LDS padding does not count)
   3. kernels  K1 deform_conv, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
@@ -160,10 +163,11 @@ def log(msg):
     print(msg, flush=True)
 
 
-def sass_histograms(lib, kernels):
+def sass_histograms(lib, kernels, live=False):
     """{kernel: Counter of SASS opcodes with their modifiers} of the
     functions of the library `lib` whose names hold each of `kernels`
-    (cuobjdump -sass)."""
+    (cuobjdump -sass); `live`: without the instructions predicated on
+    @!PT, which never execute (ptxas pads cp.async with such LDS)."""
     import re
     import shutil
     from collections import Counter
@@ -178,14 +182,16 @@ def sass_histograms(lib, kernels):
         if "Function :" in line:
             cur = next((k for k in kernels if k in line), None)
         elif cur is not None and (m := op.search(line)):
-            hist[cur][m.group(1)] += 1
+            if not (live and "@!PT " in line):
+                hist[cur][m.group(1)] += 1
     return hist
 
 
-def sass_counts(lib, kernel, opcodes):
+def sass_counts(lib, kernel, opcodes, live=False):
     """How many SASS instructions of each opcode (any modifiers) the
-    functions of the library `lib` whose names hold `kernel` have."""
-    hist = sass_histograms(lib, [kernel])[kernel]
+    functions of the library `lib` whose names hold `kernel` have (`live`:
+    as sass_histograms)."""
+    hist = sass_histograms(lib, [kernel], live)[kernel]
     return {op: sum(n for full, n in hist.items()
                     if full == op or full.startswith(op + "."))
             for op in opcodes}
@@ -1656,6 +1662,14 @@ def main():
     log(f"E2 SASS opcodes: {json.dumps(ops)}")
     if not (ops["HGMMA"] and ops["LDGSTS"]) or ops["HMMA"]:
         raise AssertionError(f"E2 is not on wgmma fed by cp.async: {ops}")
+    # E5/E6: the band slab staged in shared memory by cp.async or TMA, the
+    # corners read from there
+    ops = sass_counts(lib_path, "band_staged_kernel",
+                      ("LDGSTS", "UTMALDG", "LDS"), live=True)
+    log(f"E5/E6 staged SASS opcodes: {json.dumps(ops)}")
+    if not ((ops["LDGSTS"] or ops["UTMALDG"]) and ops["LDS"]):
+        raise AssertionError(f"E5/E6 do not stage their slab in shared "
+                             f"memory: {ops}")
     csrc = os.path.join(ROOT, CSRC)
     if any("flash_mma" in name or "flash_mma" in open(
             os.path.join(csrc, name)).read() for name in os.listdir(csrc)):

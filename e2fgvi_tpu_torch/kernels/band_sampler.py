@@ -28,10 +28,18 @@ matter; torch's uint32 has few operations):
   pack_cpairs (E1): word c = bf16 channel 2c in the low half, channel
       2c+1 in the high half.
 
+E5 and E6 run one staged kernel (csrc/band_sampler.cu band_staged_kernel):
+a block per (i, y-tile) for all taps and channels, the tile's slab rows
+copied into shared memory by channel chunk. `plan` picks the tile height
+and the chunk; a shape it cannot fit raises ValueError.
+
 Each wrapper takes its plain version for tensors on the CPU, and only then;
 for CUDA tensors it launches its kernel or raises. Kernels are
 forward-only. `LAUNCHES` counts each wrapper's launches.
 """
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +50,104 @@ LAUNCHES = {"band_sample": 0, "band_sample_cbatch": 0,
             "band_sample_xpair": 0, "band_sample_cpair": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# ---------------------------------------------------------------------------
+# The staged kernel's plan
+# ---------------------------------------------------------------------------
+
+# dynamic shared memory a block may use: 227 KB less the kernel's two
+# mbarriers (csrc/band_sampler.cu band::kMaxSmem)
+SMEM_MAX = 232448 - 16
+# what two blocks can hold on one SM (228 KB, 1 KB reserved a block)
+SMEM_TWO_BLOCKS = (233472 - 2 * 1024) // 2 - 16
+# output rows a block: 8 or 4, smaller only where nothing else fits
+TILE_ROWS = (8, 4, 2, 1)
+# L2 bytes an output past which a plan's L2 traffic, not its occupancy,
+# sets its pace: on the H100 the two-block plans of 4-byte elements at
+# band 48 read 11.7 and ran at ~3.5 TB/s through L2, 10-24% behind one
+# block reading 6.1 (tools/band_plan_sweep.py); at 3.1-6.0 two blocks won
+L2_BYTES_PER_OUTPUT = 8
+
+
+class BandPlan(NamedTuple):
+    """How the staged kernel cuts one call: blocks of `ty` output rows of
+    one (batch, group) tile i, all taps and channels; the block stages its
+    slab rows in shared memory `chunk` channels at a time, `slot_bytes` a
+    channel, double-buffered when there is more than one chunk."""
+    ty: int
+    chunk: int
+    nchunks: int
+    slot_bytes: int
+    smem_bytes: int
+
+    def tiles(self, hp, band):
+        """(y0, output rows, staged slab rows) of each y-tile: the block
+        writes rows [y0, y0 + output rows) and stages slab rows [y0, y0 +
+        staged rows), which holds every row a tap inside the band reaches
+        (y + r for r in [0, band))."""
+        for y0 in range(0, hp, self.ty):
+            tyn = min(self.ty, hp - y0)
+            yield y0, tyn, min(tyn + band - 1, hp + band - y0)
+
+
+def _slot_bytes(ty, band, wp, esize):
+    """Shared bytes of one channel's staged rows (band::slot_bytes): rows
+    padded by 16 bytes where the row pitch is a multiple of 16 (the
+    padding spreads the corners of random rows over the banks), else the
+    contiguous run rounded up to 16, plus 16 for the shift that lines it up
+    with its global address."""
+    rows, row_bytes = ty + band - 1, wp * esize
+    if row_bytes % 16 == 0:
+        return rows * (row_bytes + 16)
+    return -(-rows * row_bytes // 16) * 16 + 16
+
+
+def make_plan(ty, chunk, cg, wp, band, esize):
+    """The BandPlan of a tile height and a channel chunk."""
+    nchunks = -(-cg // chunk)
+    slot = _slot_bytes(ty, band, wp, esize)
+    return BandPlan(ty, chunk, nchunks, slot,
+                    (1 if nchunks == 1 else 2) * chunk * slot)
+
+
+def _l2_bytes(p, k, cg, hp, wp, band, esize):
+    """Bytes a plan reads through L2 for one (batch, group) tile i beside
+    its output: the positions and mask once a chunk, and each y-tile's
+    staged rows of every channel."""
+    staged = sum(rows for _, _, rows in p.tiles(hp, band))
+    return p.nchunks * k * hp * wp * 12 + staged * cg * wp * esize
+
+
+@functools.lru_cache(maxsize=256)      # the wrappers plan every launch
+def plan(cg, hp, wp, band, esize, k=9):
+    """The staged kernel's plan for CG channels of (HP + band, WP) slabs of
+    `esize`-byte elements (4: float32 or packed x-pairs, 2: bfloat16) and
+    K taps (K1's 3x3 by default).
+
+    Tiles of 8 or 4 output rows (2 or 1 only where neither fits) and
+    equal channel chunks, scored by the bytes they read through L2
+    (positions once a chunk, slab rows once a tile; the taller tile on a
+    tie). The least of those that let two blocks share an SM, unless it
+    reads more than L2_BYTES_PER_OUTPUT: then the least of all, up to the
+    227 KB one block may use. Raises ValueError where not even one channel
+    of one output row fits."""
+    tys = list(dict.fromkeys(min(t, hp) for t in TILE_ROWS))
+    chunks = sorted({-(-cg // n) for n in range(1, cg + 1)})
+    for heights in (tys[:2], tys[2:]):
+        fits = [p for p in (make_plan(ty, c, cg, wp, band, esize)
+                            for ty in heights for c in chunks)
+                if p.smem_bytes <= SMEM_MAX]
+        if not fits:
+            continue
+        cost = {p: _l2_bytes(p, k, cg, hp, wp, band, esize) for p in fits}
+        order = sorted(fits, key=lambda p: (cost[p], -p.ty))
+        two = [p for p in order if p.smem_bytes <= SMEM_TWO_BLOCKS]
+        if two and cost[two[0]] <= L2_BYTES_PER_OUTPUT * k * cg * hp * wp:
+            return two[0]
+        return order[0]
+    raise ValueError(f"band sampler: no plan fits {SMEM_MAX} bytes of "
+                     f"shared memory (CG {cg}, HP {hp}, WP {wp}, band "
+                     f"{band}, {esize}-byte elements)")
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +271,36 @@ def _prep(src, py, px, mask):
             mask.contiguous())
 
 
+def _vx(wp, esize, *tensors):
+    """Consecutive x a thread of the staged kernel takes: 8 for 4-byte
+    source elements, 4 for bfloat16 (the faster on the H100 at the
+    experiments' shapes), where WP allows and the position and output rows
+    are 16-byte aligned; else 4, else 1."""
+    for vx in (8, 4) if esize == 4 else (4,):
+        if wp % vx == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+            return vx
+    return 1
+
+
+def _launch_staged(name, entry, lead, src, py, px, mask, dy_lo, out_dtype):
+    """Check, plan and launch the staged kernel through the C entry point
+    `entry` (`lead`: its arguments before the pointers); returns the
+    output."""
+    ng, k, cg, hp, wp, band = _check(name, src, py, px, mask)
+    p = plan(cg, hp, wp, band, src.element_size(), k)
+    out = torch.empty((ng, k, cg, hp, wp), dtype=out_dtype, device=src.device)
+    err = getattr(build.library(), entry)(
+        *lead, src.data_ptr(), py.data_ptr(), px.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), ng, k, cg, hp, wp, band, dy_lo, p.ty, p.chunk,
+        _vx(wp, src.element_size(), py, px, mask, out),
+        *build.stream_args(src))
+    build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def band_sample(src, py, px, mask, dy_lo, out_dtype=None):
-    """E5 `base` / `bf16`: one thread per output element.
+    """E5 `base` / `bf16`.
 
     src float32 or bfloat16; out_dtype defaults to src's. float32 src with
     a bfloat16 output is E5 `base` (float32 gathers); bfloat16 src is E5
@@ -175,42 +309,28 @@ def band_sample(src, py, px, mask, dy_lo, out_dtype=None):
     if src.device.type == "cpu":
         return band_sample_plain(src, py, px, mask, dy_lo, out_dtype)
     src, py, px, mask = _prep(src, py, px, mask)
-    ng, k, cg, hp, wp, band = _check("band_sample", src, py, px, mask)
     if (src.dtype, out_dtype) not in ((torch.float32, torch.float32),
                                       (torch.bfloat16, torch.bfloat16),
                                       (torch.float32, torch.bfloat16)):
         raise ValueError(f"band_sample: src {src.dtype} with output "
                          f"{out_dtype} is not a kernel")
-    out = torch.empty((ng, k, cg, hp, wp), dtype=out_dtype, device=src.device)
-    err = build.library().e2fgvi_band_sample(
-        _DTYPES[src.dtype], _DTYPES[out_dtype], src.data_ptr(),
-        py.data_ptr(), px.data_ptr(), mask.data_ptr(), out.data_ptr(), ng,
-        k, cg, hp, wp, band, dy_lo, *build.stream_args(src))
-    build.check(err, "band_sample")
-    LAUNCHES["band_sample"] += 1
-    return out
+    return _launch_staged("band_sample", "e2fgvi_band_sample",
+                          (_DTYPES[src.dtype], _DTYPES[out_dtype]), src, py,
+                          px, mask, dy_lo, out_dtype)
 
 
 def band_sample_cbatch(src, py, px, mask, dy_lo):
-    """E5 `cbatch`: one thread per (i, t, y, x) computes the row and x
-    weights once and loops over the channels; writes (acc * mask) rounded
-    once to src's dtype (float32 or bfloat16)."""
+    """E5 `cbatch`: the row and x weights once per position, a loop over
+    the channels; writes (acc * mask) rounded once to src's dtype (float32
+    or bfloat16)."""
     if src.device.type == "cpu":
         return band_sample_cbatch_plain(src, py, px, mask, dy_lo)
     src, py, px, mask = _prep(src, py, px, mask)
-    ng, k, cg, hp, wp, band = _check("band_sample_cbatch", src, py, px,
-                                     mask)
     if src.dtype not in _DTYPES:
         raise ValueError(f"band_sample_cbatch: unsupported {src.dtype}")
-    out = torch.empty((ng, k, cg, hp, wp), dtype=src.dtype,
-                      device=src.device)
-    err = build.library().e2fgvi_band_sample_cbatch(
-        _DTYPES[src.dtype], src.data_ptr(), py.data_ptr(), px.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), ng, k, cg, hp, wp, band, dy_lo,
-        *build.stream_args(src))
-    build.check(err, "band_sample_cbatch")
-    LAUNCHES["band_sample_cbatch"] += 1
-    return out
+    return _launch_staged("band_sample_cbatch", "e2fgvi_band_sample_cbatch",
+                          (_DTYPES[src.dtype],), src, py, px, mask, dy_lo,
+                          src.dtype)
 
 
 def band_sample_xpair(psrc, py, px, mask, dy_lo):
@@ -220,20 +340,11 @@ def band_sample_xpair(psrc, py, px, mask, dy_lo):
     if psrc.device.type == "cpu":
         return band_sample_plain(unpack_xpairs(psrc), py, px, mask, dy_lo)
     psrc, py, px, mask = _prep(psrc, py, px, mask)
-    ng, k, cg, hp, wp, band = _check("band_sample_xpair", psrc, py, px,
-                                     mask)
     if psrc.dtype != torch.int32:
         raise ValueError("band_sample_xpair: psrc must be int32 "
                          "(pack_xpairs)")
-    out = torch.empty((ng, k, cg, hp, wp), dtype=torch.bfloat16,
-                      device=psrc.device)
-    err = build.library().e2fgvi_band_sample_xpair(
-        psrc.data_ptr(), py.data_ptr(), px.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), ng, k, cg, hp, wp, band, dy_lo,
-        *build.stream_args(psrc))
-    build.check(err, "band_sample_xpair")
-    LAUNCHES["band_sample_xpair"] += 1
-    return out
+    return _launch_staged("band_sample_xpair", "e2fgvi_band_sample_xpair", (),
+                          psrc, py, px, mask, dy_lo, torch.bfloat16)
 
 
 def band_sample_cpair(psrc, py, px, mask, dy_lo):

@@ -32,9 +32,9 @@ _SIGNATURES = {
     "e2fgvi_deform_conv": [_I] + [_P] * 7 + [_I] * 10 + [_F, _I, _P],
     "e2fgvi_flow_warp": [_I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "e2fgvi_focal_attention": [_I] + [_P] * 5 + [_I] * 8 + [_P],
-    "e2fgvi_band_sample": [_I, _I] + [_P] * 5 + [_I] * 8 + [_P],
-    "e2fgvi_band_sample_cbatch": [_I] + [_P] * 5 + [_I] * 8 + [_P],
-    "e2fgvi_band_sample_xpair": [_P] * 5 + [_I] * 8 + [_P],
+    "e2fgvi_band_sample": [_I, _I] + [_P] * 5 + [_I] * 11 + [_P],
+    "e2fgvi_band_sample_cbatch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
+    "e2fgvi_band_sample_xpair": [_P] * 5 + [_I] * 11 + [_P],
     "e2fgvi_band_sample_cpair": [_P] * 5 + [_I] * 8 + [_P],
     "e2fgvi_row_gather": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
     "e2fgvi_bilinear4_sample": [_P] * 5 + [_I] * 6 + [_P],

@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from e2fgvi_tpu_torch.utils import env
+
 # (name, kind, spec); conv spec: (cin, cout, (kd,kh,kw), (sd,sh,sw));
 # pool spec: ((kd,kh,kw), (sd,sh,sw))  (e2fgvi_tpu/models/i3d.py:24-45)
 _STEM = [
@@ -192,12 +194,14 @@ def load_reference_state_dict(model: I3D, sd: dict):
     return model.load_state_dict(out, strict=True)
 
 
-def load_i3d(path, device="cpu"):
-    """An I3D from a reference .pt on `device`, in eval form."""
+def load_i3d(path, device=None):
+    """An I3D from a reference .pt on `device` (None: CUDA, and raise
+    without it; the CPU only by name), in eval form."""
+    dev = env.device(device)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     model = I3D()
     load_reference_state_dict(model, sd)
-    return model.to(device).eval()
+    return model.to(dev).eval()
 
 
 def random_reference_state_dict(gen: torch.Generator, num_classes=400):

@@ -387,10 +387,31 @@ def _close_bf16(got, want):
                                atol=1e-6)
 
 
+# the staged E5/E6 kernel's geometries: the ragged width (x one position a
+# thread, 2-byte row pitches that no 16-byte copy lines up with), an aligned
+# 128-wide tile, band 24 with HP = 21 (no multiple of the plan's tile
+# height), and exp_dcn_pack's band 48, where a float32 source takes several
+# channel chunks, double-buffered
+_SAMPLER_GEOMS = {
+    "ragged": dict(ng=3, k=2, cg=6, hp=7, wp=19, band=8),
+    "aligned": dict(ng=2, k=3, cg=8, hp=16, wp=128, band=8),
+    "band24": dict(ng=2, k=3, cg=16, hp=21, wp=128, band=24),
+    "band48": dict(ng=2, k=2, cg=16, hp=64, wp=128, band=48),
+}
+
+
+@pytest.mark.parametrize("geom", list(_SAMPLER_GEOMS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cbatch", [False, True])
-def test_band_sample_matches_plain(gen, dtype, cbatch):
-    inputs = _band_inputs(gen, dtype)
+def test_band_sample_matches_plain(gen, dtype, cbatch, geom):
+    g = _SAMPLER_GEOMS[geom]
+    inputs = _band_inputs(gen, dtype, **g)
+    plan = bs.plan(g["cg"], g["hp"], g["wp"], g["band"],
+                   inputs[0].element_size())
+    if geom == "band24":
+        assert g["hp"] % plan.ty
+    if geom == "band48" and dtype == torch.float32:
+        assert plan.nchunks > 1
     kernel = bs.band_sample_cbatch if cbatch else bs.band_sample
     plain = bs.band_sample_cbatch_plain if cbatch else bs.band_sample_plain
     name = "band_sample_cbatch" if cbatch else "band_sample"
@@ -405,8 +426,9 @@ def test_band_sample_matches_plain(gen, dtype, cbatch):
         _close_bf16(got, want)
 
 
-def test_packed_band_samplers_bit_equal_base(gen):
-    src, *rest = _band_inputs(gen, torch.bfloat16)
+@pytest.mark.parametrize("geom", list(_SAMPLER_GEOMS))
+def test_packed_band_samplers_bit_equal_base(gen, geom):
+    src, *rest = _band_inputs(gen, torch.bfloat16, **_SAMPLER_GEOMS[geom])
     base = bs.band_sample(src, *rest)
     assert torch.equal(bs.band_sample(src.float(), *rest,
                                       out_dtype=torch.bfloat16), base)

@@ -60,7 +60,7 @@ def test_loader_drops_logits_and_refuses_strays(reference_sd, tmp_path):
     assert any(k.endswith("num_batches_tracked") for k in reference_sd)
     path = tmp_path / "i3d_rgb_imagenet.pt"
     torch.save(reference_sd, path)
-    model = i3d.load_i3d(path)
+    model = i3d.load_i3d(path, "cpu")
     assert not model.training
     assert not any("logits" in k for k in model.state_dict())
 
@@ -71,6 +71,18 @@ def test_loader_drops_logits_and_refuses_strays(reference_sd, tmp_path):
                if not k.startswith("Mixed_3b.b0.")}
     with pytest.raises(KeyError, match="Mixed_3b.b0"):
         i3d.load_reference_state_dict(i3d.I3D(), missing)
+
+
+def test_load_i3d_asks_for_cuda_by_default(reference_sd, tmp_path,
+                                          monkeypatch):
+    """With no device named, load_i3d asks for CUDA and raises without it,
+    as every entry point of the port does; the CPU only by name."""
+    path = tmp_path / "i3d_rgb_imagenet.pt"
+    torch.save(reference_sd, path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        i3d.load_i3d(path)
+    assert next(i3d.load_i3d(path, "cpu").parameters()).device.type == "cpu"
 
 
 def test_init_weights_match_jax_distributions():

@@ -4,7 +4,8 @@ card.
 
     python3 tools/deform_ab.py --root <tree> --tag <name> [--out <dir>]
                                [--parts deform gather accuracy serve_f32
-                                        serve_bf16 band_attention]
+                                        serve_bf16 band_attention
+                                        band_sampler]
     python3 tools/deform_ab.py --compare <dir>/<a>.pt <dir>/<b>.pt
     python3 tools/deform_ab.py --summarize <tree>_<pair>.jsonl ...
 
@@ -49,7 +50,18 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
   maps (`kernel_ms`; in a tree before band_attention_kernel, its entry
   point called as that tree's wrapper calls it), K3's layer on the same
   inputs (`k3_layer_ms`, tfocal.window_attention) and K3 alone on
-  chip_smoke.k3_inputs at base in bfloat16 (`k3_ms`).
+  chip_smoke.k3_inputs at base in bfloat16 (`k3_ms`);
+- `band_sampler`: the banded samplers (kernels/band_sampler.py) at
+  experiments.exp_dcn_inner_r04.make_inputs' shape (band 24): E5
+  band_sample in bfloat16, in float32 and on a float32 source with a
+  bfloat16 output (the experiment's `base`), band_sample_cbatch in both
+  dtypes, E6 band_sample_xpair; and at experiments.exp_dcn_pack's (band
+  48): E5 in bfloat16 (its `current`) and E1 band_sample_cpair, the
+  control. Each with `ms` (cuda_ms, the wrapper's host time included) and
+  `split` (host and device apart; `device_us` by kernel name), its plain
+  version's `plain_ms` once a shape, and the kernel's bound (chip_smoke's
+  roofline: the inputs once, the output once, 9 float32 operations an
+  output).
 
 Every part also prints the SASS opcode histogram of its kernels
 (cuobjdump): load and store opcodes in full, the rest as a digest. The
@@ -84,7 +96,11 @@ SASS = {"deform": ("deform_conv_tf32_kernel", "flow_warp_kernel",
         "accuracy": ("deform_conv_tf32_kernel",), "serve_f32": (),
         "serve_bf16": (),
         "band_attention": ("band_attention_kernel",
-                           "focal_attention_wgmma_kernel")}
+                           "focal_attention_wgmma_kernel"),
+        "band_sampler": ("band_staged_kernel", "band_sample_kernel",
+                         "band_sample_cbatch_kernel",
+                         "band_sample_xpair_kernel",
+                         "band_sample_cpair_kernel")}
 SPLIT_CALLS = 200
 GATHER_ITERS = 50    # cuda_ms calls a median for the ~0.05 ms gathers
 # (kernel's ms, its library call's ms) keys of a result line
@@ -387,6 +403,57 @@ def run_band_attention(cs, tag, dev, saved):
     print(json.dumps(res), flush=True)
 
 
+def run_band_sampler(cs, tag, dev, saved):
+    import torch
+    from e2fgvi_tpu_torch.experiments import exp_dcn_inner_r04 as ei
+    from e2fgvi_tpu_torch.experiments import exp_dcn_pack as ep
+    from e2fgvi_tpu_torch.kernels import band_sampler as bs
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+
+    def timed(shape, kernel, dtype, fn, ins, plain_ms=None):
+        out = fn(*ins)
+        bound, by = cs.roofline(ins[:4], [out], [
+            (9 * out.numel(), cs.PEAK_FLOPS["float32"])])
+        # the first two (batch, group) tiles, for --compare
+        saved[f"{kernel}_{dtype}_{shape}"] = out[:2].cpu()
+        del out
+        res = {"tag": tag, "shape": shape, "kernel": kernel, "dtype": dtype,
+               "ms": cuda_ms(lambda: fn(*ins), GATHER_ITERS),
+               "bound_ms": bound, "bound_by": by,
+               "split": split(lambda: fn(*ins), 50)}
+        if plain_ms is not None:
+            res["plain_ms"] = plain_ms
+        print(json.dumps(res), flush=True)
+
+    with torch.inference_mode():
+        src, *pos = ei.make_inputs(dev)                  # band 24
+        plain_ms = cuda_ms(lambda: bs.band_sample_plain(src, *pos), 3)
+        src32 = src.float()
+        timed("band24", "band_sample", "bfloat16", bs.band_sample,
+              (src, *pos), plain_ms)
+        timed("band24", "band_sample_cbatch", "bfloat16",
+              bs.band_sample_cbatch, (src, *pos))
+        timed("band24", "band_sample_xpair", "bfloat16",
+              bs.band_sample_xpair, (bs.pack_xpairs(src), *pos))
+        timed("band24", "band_sample", "float32", bs.band_sample,
+              (src32, *pos))
+        timed("band24", "band_sample", "base",
+              lambda *a: bs.band_sample(*a, out_dtype=torch.bfloat16),
+              (src32, *pos))
+        timed("band24", "band_sample_cbatch", "float32",
+              bs.band_sample_cbatch, (src32, *pos))
+        del src, src32, pos
+        torch.cuda.empty_cache()
+        src, *pos = ep.make_inputs(dev)                  # band 48
+        timed("band48", "band_sample", "bfloat16", bs.band_sample,
+              (src, *pos),
+              cuda_ms(lambda: bs.band_sample_plain(src, *pos), 3))
+        timed("band48", "band_sample_cpair", "bfloat16",
+              bs.band_sample_cpair, (bs.pack_cpairs(src), *pos))
+        del src, pos
+        torch.cuda.empty_cache()
+
+
 def measure(root, tag, out_dir, parts):
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -413,7 +480,8 @@ def measure(root, tag, out_dir, parts):
     runners = {"deform": run_deform, "gather": run_gather,
                "accuracy": run_accuracy, "serve_f32": run_serve_f32,
                "serve_bf16": run_serve_bf16,
-               "band_attention": run_band_attention}
+               "band_attention": run_band_attention,
+               "band_sampler": run_band_sampler}
     for p in parts:
         runners[p](cs, tag, dev, saved)
     os.makedirs(out_dir, exist_ok=True)
