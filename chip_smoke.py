@@ -7,15 +7,17 @@ on one H100.
 Phases, one line each (any failed check raises and exits nonzero):
   1. device   CUDA with compute capability 9.0; nvidia-smi name, power limit
   2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc; the SASS
-              of the bf16 K3 and of K1 in both dtypes (one fused kernel
-              each) must hold HGMMA (wgmma; TF32 ones in the float32 K1)
-              and UTMALDG (TMA loads); the bf16 K3's opcode histogram must
-              be K3_SASS's (its consumer loop is shared with E2); E2 must
-              hold HGMMA and LDGSTS (cp.async) and no HMMA (mma.sync), and
-              csrc/flash_mma.cuh must be gone; E5/E6's staged kernel
-              (band_staged_kernel) must stage by LDGSTS or UTMALDG and read
-              its corners by LDS (executable ones: cp.async's never-taken
-              @!PT LDS padding does not count)
+              of K3 and K1 in both dtypes (one fused kernel each) must hold
+              HGMMA (wgmma; TF32 ones in the float32 K1 and K3, which hold
+              no HMMA) and UTMALDG (TMA loads); ptxas must report 0 spill
+              bytes for the float32 K3 and E1; the bf16 K3's opcode
+              histogram must be K3_SASS's (its consumer loop is shared
+              with E2); E2 must hold HGMMA and LDGSTS (cp.async) and no
+              HMMA (mma.sync), and csrc/flash_mma.cuh must be gone; the
+              staged kernel of E5/E6 (band_staged_kernel) and of E1 (its
+              CPair instantiation) must stage by LDGSTS or UTMALDG and
+              read its corners by LDS (executable ones: cp.async's
+              never-taken @!PT LDS padding does not count)
   3. kernels  K1 deform_conv, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
@@ -195,6 +197,27 @@ def sass_counts(lib, kernel, opcodes, live=False):
     return {op: sum(n for full, n in hist.items()
                     if full == op or full.startswith(op + "."))
             for op in opcodes}
+
+
+def ptxas_info(log, kernel):
+    """[{"function", "registers", "spill_stores", "spill_loads"}] of each
+    entry function in nvcc's ptxas -v output `log` whose name holds
+    `kernel`."""
+    import re
+    res, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)} if kernel in m.group(1) else None
+            if cur is not None:
+                res.append(cur)
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line):
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            elif m := re.search(r"Used (\d+) registers", line):
+                cur["registers"] = int(m.group(1))
+    return res
 
 
 def sass_digest(hist):
@@ -1625,8 +1648,17 @@ def main():
     lib_path, nvcc_log = build.build()
     build.library()
     for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
+        if any(w in line for w in ("registers", "spill", "entry function",
+                                   "wgmma")):
             log("  " + line.strip())
+    # the float32 K3 and E1's staged kernel: none of their registers spill
+    for kernel in ("focal_attention_3xtf32_kernel", "CPair"):
+        info = ptxas_info(nvcc_log, kernel)
+        log(f"ptxas {kernel}: {json.dumps(info)}")
+        if not info or any(i.get("spill_stores", 1) or i.get("spill_loads", 1)
+                           for i in info):
+            raise AssertionError(f"{kernel}: spills or no ptxas report: "
+                                 f"{info}")
     # the bf16 K3 must run on wgmma fed by TMA
     ops = sass_counts(lib_path, "focal_attention_wgmma_kernel",
                       ("HGMMA", "UTMALDG", "HMMA"))
@@ -1648,6 +1680,17 @@ def main():
     if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
             and any(op.startswith("UTMALDG") for op in ops)):
         raise AssertionError(f"f32 K1 is not on TF32 wgmma + TMA: {ops}")
+    # the float32 K3: 3xTF32 on TF32 wgmma fed by TMA, no mma.sync left
+    hist = sass_histograms(lib_path, ["focal_attention_3xtf32_kernel"])[
+        "focal_attention_3xtf32_kernel"]
+    ops = {op: n for op, n in hist.items()
+           if op.startswith(("HGMMA", "UTMALDG", "HMMA"))}
+    log(f"f32 K3 SASS opcodes: {json.dumps(ops)}")
+    if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
+            and any(op.startswith("UTMALDG") for op in ops)) or any(
+                op.startswith("HMMA") for op in ops):
+        raise AssertionError(f"f32 K3 is not on TF32 wgmma + TMA alone: "
+                             f"{ops}")
     # K3 keeps its SASS with the consumer loop it shares with E2; E2 runs
     # that loop on wgmma, fed by cp.async (LDGSTS), and mma.sync is gone
     hist = sass_histograms(lib_path, ["focal_attention_wgmma_kernel"])
@@ -1662,14 +1705,15 @@ def main():
     log(f"E2 SASS opcodes: {json.dumps(ops)}")
     if not (ops["HGMMA"] and ops["LDGSTS"]) or ops["HMMA"]:
         raise AssertionError(f"E2 is not on wgmma fed by cp.async: {ops}")
-    # E5/E6: the band slab staged in shared memory by cp.async or TMA, the
-    # corners read from there
-    ops = sass_counts(lib_path, "band_staged_kernel",
-                      ("LDGSTS", "UTMALDG", "LDS"), live=True)
-    log(f"E5/E6 staged SASS opcodes: {json.dumps(ops)}")
-    if not ((ops["LDGSTS"] or ops["UTMALDG"]) and ops["LDS"]):
-        raise AssertionError(f"E5/E6 do not stage their slab in shared "
-                             f"memory: {ops}")
+    # E5/E6 and E1: the band slab staged in shared memory by cp.async or
+    # TMA, the corners read from there
+    for label, kernel in (("E5/E6", "band_staged_kernel"), ("E1", "CPair")):
+        ops = sass_counts(lib_path, kernel, ("LDGSTS", "UTMALDG", "LDS"),
+                          live=True)
+        log(f"{label} staged SASS opcodes: {json.dumps(ops)}")
+        if not ((ops["LDGSTS"] or ops["UTMALDG"]) and ops["LDS"]):
+            raise AssertionError(f"{label} does not stage its slab in "
+                                 f"shared memory: {ops}")
     csrc = os.path.join(ROOT, CSRC)
     if any("flash_mma" in name or "flash_mma" in open(
             os.path.join(csrc, name)).read() for name in os.listdir(csrc)):

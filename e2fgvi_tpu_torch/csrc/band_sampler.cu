@@ -42,10 +42,11 @@
 //                  in float32, acc * mask;
 //   E5 cbatch      band_sample_cbatch: one rounding, (acc * mask);
 //   E6             band_sample_xpair: words src[x] << 16 | src[x+1], one
-//                  aligned 32-bit shared load a row gives both x corners.
-// E1 (band_sample_cpair: one 32-bit load per (corner, row) gives two
-// channels, low half = channel 2c) keeps one thread per output pair, its
-// corners straight from global memory.
+//                  aligned 32-bit shared load a row gives both x corners;
+//   E1             band_sample_cpair: words of channels 2c (low half) and
+//                  2c+1, staged as E5 stages its bf16 channels (the same
+//                  bytes); one 32-bit shared load a corner and row gives
+//                  both channels: half E5's corner loads for its outputs.
 // All sum in one fixed order with the rounding intrinsics (no FMA
 // contraction), so xpair and cpair are bit-equal to band_sample on the same
 // bfloat16 source, and the float32 sums equal the plain version's.
@@ -116,50 +117,10 @@ __device__ __forceinline__ float bf16_lo(unsigned g) {
 }
 
 // ---------------------------------------------------------------------------
-// E1 cpair: psrc (NG, CG/2, HS, WP), word = channel 2c (low) | 2c+1 (high);
-// one thread per (i, t, channel pair, y, x) writes both channels
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
-band_sample_cpair_kernel(const unsigned* __restrict__ psrc,
-                         const float* __restrict__ py,
-                         const float* __restrict__ px,
-                         const float* __restrict__ mask,
-                         __nv_bfloat16* __restrict__ out, int NG, int K,
-                         int CGP, int HP, int WP, int band, int dy_lo) {
-  const long long total = (long long)NG * K * CGP * HP * WP;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int x = (int)(e % WP);
-  long long r = e / WP;
-  const int y = (int)(r % HP);
-  r /= HP;
-  const int cp = (int)(r % CGP);
-  r /= CGP;
-  const int i = (int)(r / K);
-  const long long pos = (r * HP + y) * WP + x;
-  const BandTaps b = band_taps(py[pos], px[pos], y, dy_lo, band, WP);
-  const int HS = HP + band;
-  const unsigned* s = psrc + ((long long)i * CGP + cp) * HS * WP;
-  float acc_e = 0.f, acc_o = 0.f;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    if (b.row[k] < 0) continue;
-    const unsigned* p = s + (long long)b.row[k] * WP + b.x0;
-    const unsigned g0 = p[0], g1 = p[1];
-    acc_e = band_term(acc_e, bf16_lo(g0), bf16_lo(g1), b.w0[k], b.w1[k]);
-    acc_o = band_term(acc_o, bf16_hi(g0), bf16_hi(g1), b.w0[k], b.w1[k]);
-  }
-  const float m = mask[pos];
-  const long long plane = (long long)HP * WP;
-  __nv_bfloat16* o = out + ((r * 2 * CGP + 2 * cp) * HP + y) * WP + x;
-  o[0] = band_out<__nv_bfloat16>(acc_e, m);
-  o[plane] = band_out<__nv_bfloat16>(acc_o, m);
-}
-
-// ---------------------------------------------------------------------------
-// E5 (base, bf16, cbatch) and E6: one block per (i, y-tile), all K taps and
-// CG channels, the tile's slab rows staged in shared memory by channel
-// chunk. out (NG, K, CG, HP, WP).
+// E5 (base, bf16, cbatch), E6 and E1: one block per (i, y-tile), all K taps
+// and CG source channels (E1: CG channel-pair words), the tile's slab rows
+// staged in shared memory by channel chunk. out (NG, K, CG * lanes, HP,
+// WP), lanes the output channels a source element holds (2 for E1, else 1).
 // ---------------------------------------------------------------------------
 namespace band {
 
@@ -167,30 +128,60 @@ constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;   // 227 KB: the most a block may use
 
 struct XPair {};  // source tag: 32-bit words src[x] << 16 | src[x+1]
+struct CPair {};  // source tag: 32-bit words, bf16 channel 2c in the low
+                  // half, 2c+1 in the high half (pack_cpairs)
 
+// T: a staged element; kLanes: the output channels it holds
 template <typename S>
 struct Elem {
   using T = S;
+  static constexpr int kLanes = 1;
 };
 template <>
 struct Elem<XPair> {
   using T = unsigned;
+  static constexpr int kLanes = 1;
+};
+template <>
+struct Elem<CPair> {
+  using T = unsigned;
+  static constexpr int kLanes = 2;
 };
 
-// the x0 and x0+1 corners of one staged row, p at x0
+// The x0 and x0+1 corners of one staged row, p at x0, as loaded: get(l, x)
+// is corner x of output channel l in float32. E6 reads one word for both
+// corners; E1 one word a corner for both channels.
 template <typename S>
-__device__ __forceinline__ void corners(const typename Elem<S>::T* p,
-                                        float& g0, float& g1) {
-  g0 = to_f32(p[0]);
-  g1 = to_f32(p[1]);
-}
+struct Corners {
+  typename Elem<S>::T a, b;
+  __device__ __forceinline__ void load(const typename Elem<S>::T* p) {
+    a = p[0];
+    b = p[1];
+  }
+  __device__ __forceinline__ float get(int, int x) const {
+    return to_f32(x ? b : a);
+  }
+};
 template <>
-__device__ __forceinline__ void corners<XPair>(const unsigned* p, float& g0,
-                                               float& g1) {
-  const unsigned g = p[0];
-  g0 = bf16_hi(g);
-  g1 = bf16_lo(g);
-}
+struct Corners<XPair> {
+  unsigned a;
+  __device__ __forceinline__ void load(const unsigned* p) { a = p[0]; }
+  __device__ __forceinline__ float get(int, int x) const {
+    return x ? bf16_lo(a) : bf16_hi(a);
+  }
+};
+template <>
+struct Corners<CPair> {
+  unsigned a, b;
+  __device__ __forceinline__ void load(const unsigned* p) {
+    a = p[0];
+    b = p[1];
+  }
+  __device__ __forceinline__ float get(int l, int x) const {
+    const unsigned g = x ? b : a;
+    return l ? bf16_hi(g) : bf16_lo(g);
+  }
+};
 
 // E5 and E6 write band_out (bf16(acc) * bf16(mask), or acc * mask in
 // float32); cbatch rounds once, (acc * mask)
@@ -295,10 +286,12 @@ __device__ __forceinline__ void stage_chunk(const unsigned char* src,
   hopper::mbar_arrive(bar);
 }
 
-// S: float, __nv_bfloat16 or XPair; TO: the output; VX: consecutive x a
-// thread takes (WP % VX == 0, the position and output rows aligned to it)
+// S: float, __nv_bfloat16, XPair or CPair; TO: the output; VX: consecutive
+// x a thread takes (WP % VX == 0, the position and output rows aligned to
+// it)
 template <typename S, typename TO, bool ONE_ROUNDING, int VX>
-__global__ void __launch_bounds__(kThreads, VX == 8 ? 2 : 3)
+__global__ void __launch_bounds__(kThreads,
+                                  VX * Elem<S>::kLanes >= 8 ? 2 : 3)
 band_staged_kernel(const unsigned char* __restrict__ src,
                    const float* __restrict__ py,
                    const float* __restrict__ px,
@@ -306,6 +299,7 @@ band_staged_kernel(const unsigned char* __restrict__ src,
                    int K, int CG, int HP, int WP, int band, int dy_lo,
                    int ty, int chunk, int pitch, int slot_bytes) {
   using T = typename Elem<S>::T;
+  constexpr int L = Elem<S>::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[2];
   const int ntiles = (HP + ty - 1) / ty;
@@ -383,36 +377,39 @@ band_staged_kernel(const unsigned char* __restrict__ src,
         m[v] = vm[v];
       }
       if (task + (int)blockDim.x < ntasks) load_task(task + blockDim.x);
-      TO* o = out + (((long long)tl.i * K + t) * CG + c0) * plane +
+      TO* o = out + (((long long)tl.i * K + t) * CG + c0) * L * plane +
               (long long)y * WP + xg * VX;
       uintptr_t ga = g0;
 #pragma unroll 2
-      for (int cc = 0; cc < cn; ++cc, o += plane, ga += cpitch) {
+      for (int cc = 0; cc < cn; ++cc, o += L * plane, ga += cpitch) {
         const T* p = reinterpret_cast<const T*>(buf + cc * slot_bytes +
                                                 (ga & 15));
         // every corner is loaded (a row outside the band from the slab's
         // first element) before any is used, so the shared loads overlap;
         // a row outside the band then leaves acc as it was, as a skip would
-        float c_0[VX][2], c_1[VX][2];
+        Corners<S> cr[VX][2];
 #pragma unroll
         for (int v = 0; v < VX; ++v) {
 #pragma unroll
-          for (int s = 0; s < 2; ++s)
-            corners<S>(p + max(off[v][s], 0), c_0[v][s], c_1[v][s]);
+          for (int s = 0; s < 2; ++s) cr[v][s].load(p + max(off[v][s], 0));
         }
-        TO res[VX];
 #pragma unroll
-        for (int v = 0; v < VX; ++v) {
-          float acc = 0.f;
+        for (int l = 0; l < L; ++l) {
+          TO res[VX];
 #pragma unroll
-          for (int s = 0; s < 2; ++s) {
-            const float a = band_term(acc, c_0[v][s], c_1[v][s], w0[v][s],
-                                      w1[v][s]);
-            acc = off[v][s] < 0 ? acc : a;
+          for (int v = 0; v < VX; ++v) {
+            float acc = 0.f;
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              const float a = band_term(acc, cr[v][s].get(l, 0),
+                                        cr[v][s].get(l, 1), w0[v][s],
+                                        w1[v][s]);
+              acc = off[v][s] < 0 ? acc : a;
+            }
+            res[v] = epilogue<TO, ONE_ROUNDING>(acc, m[v]);
           }
-          res[v] = epilogue<TO, ONE_ROUNDING>(acc, m[v]);
+          store_vx<TO, VX>(o + l * plane, res);
         }
-        store_vx<TO, VX>(o, res);
       }
     }
     if (k + 1 < nchunks) __syncthreads();   // buffer k & 1 is read
@@ -456,7 +453,8 @@ cudaError_t launch_vx(const void* src, const void* py, const void* px,
 }
 
 // vx: 8, 4 or 1 consecutive x a thread (the wrapper picks it from WP and
-// the alignment of the position and output pointers)
+// the alignment of the position and output pointers); 4 or 1 for channel
+// pairs, whose 8 would hold 16 outputs' corners and spill
 template <typename S, typename TO, bool ONE_ROUNDING>
 cudaError_t launch(const void* src, const void* py, const void* px,
                    const void* mask, void* out, int NG, int K, int CG,
@@ -467,9 +465,11 @@ cudaError_t launch(const void* src, const void* py, const void* px,
     return cudaErrorInvalidValue;
   switch (vx) {
     case 8:
-      return launch_vx<S, TO, ONE_ROUNDING, 8>(src, py, px, mask, out, NG, K,
-                                               CG, HP, WP, band, dy_lo, ty,
-                                               chunk, s);
+      if constexpr (Elem<S>::kLanes == 1)
+        return launch_vx<S, TO, ONE_ROUNDING, 8>(src, py, px, mask, out, NG,
+                                                 K, CG, HP, WP, band, dy_lo,
+                                                 ty, chunk, s);
+      return cudaErrorInvalidValue;
     case 4:
       return launch_vx<S, TO, ONE_ROUNDING, 4>(src, py, px, mask, out, NG, K,
                                                CG, HP, WP, band, dy_lo, ty,
@@ -556,20 +556,17 @@ extern "C" int e2fgvi_band_sample_xpair(const void* psrc, const void* py,
       static_cast<cudaStream_t>(stream));
 }
 
+// CGP: channel-pair words; out has 2 * CGP channels
 extern "C" int e2fgvi_band_sample_cpair(const void* psrc, const void* py,
                                         const void* px, const void* mask,
                                         void* out, int NG, int K, int CGP,
                                         int HP, int WP, int band, int dy_lo,
+                                        int ty, int chunk, int vx,
                                         int device, void* stream) {
+  namespace b = e2fgvi::band;
   const cudaError_t dev_err = e2fgvi::use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-  const long long total = (long long)NG * K * CGP * HP * WP;
-  if (total > 0) {
-    e2fgvi::band_sample_cpair_kernel<<<e2fgvi::blocks_for(total, 256), 256,
-                                       0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned*>(psrc), static_cast<const float*>(py),
-        static_cast<const float*>(px), static_cast<const float*>(mask),
-        static_cast<__nv_bfloat16*>(out), NG, K, CGP, HP, WP, band, dy_lo);
-  }
-  return (int)cudaGetLastError();
+  return (int)b::launch<b::CPair, __nv_bfloat16, false>(
+      psrc, py, px, mask, out, NG, K, CGP, HP, WP, band, dy_lo, ty, chunk, vx,
+      static_cast<cudaStream_t>(stream));
 }

@@ -561,7 +561,7 @@ int launch(Params prm, const void* wk, cudaStream_t stream) {
 // bits) lands ~1e-3 off. So each operand x splits into big = rna_tf32(x)
 // and small = rna_tf32(x - big), and each product is small*big +
 // big*small + big*big (small*small, ~2^-22 relative, is dropped), as the
-// f32 K3 does on mma.sync. The tensor cores truncate every float32
+// f32 K3 does. The tensor cores truncate every float32
 // accumulation toward zero, so the error grows with the steps chained into
 // one accumulator at the sum's magnitude. With big*big kept apart from the
 // corrections, K = 2304 chains 288 k8 steps into big*big's accumulator:

@@ -20,33 +20,9 @@
 //
 // - bfloat16, the serving path (namespace hopper): wgmma fed by TMA, with a
 //   producer warpgroup. See the note there.
-// - float32, the parity path (namespace tf32): 3xTF32 on m16n8k8. One TF32
-//   pass keeps 10 mantissa bits and lands ~1e-4 off; the port pins full
-//   float32 precision. Each operand x splits into big = rna_tf32(x) and
-//   small = rna_tf32(x - big), and each product is small*big + big*small +
-//   big*big in float32 (small*small, ~2^-22 relative, is dropped). The
-//   tensor cores truncate every float32 accumulation toward zero, so the
-//   error also grows with the mma steps chained into one accumulator: the
-//   logits keep big*big apart from the corrections, and each key tile's
-//   P V sum starts from zero and joins O by a rounded add. Together this
-//   lands closer to float64 than the plain float32 version does.
-//   What bounds it: the TF32 work is 3x (3.0 TFLOP per serving call), and
-//   every warp splits the K, V, Q and P values it reads, ~5 instructions
-//   per value, 4 of them integer: the split's integer work and mma.sync's
-//   TF32 rate share the time, not the loads. The design:
-//   * 128 queries on 8 warps per block (16 rows each): a K/V tile in shared
-//     memory serves 128 queries; 8 warps are resident per SM.
-//   * K/V tiles land by 16-byte cp.async copies (the biases by 4-byte
-//     ones), double-buffered: tile j+1 loads while tile j runs; one
-//     barrier per tile.
-//   * The logits, softmax state and the 16x128 output accumulator stay in
-//     registers. P never goes through shared memory: the m16n8 accumulator
-//     gives a thread keys 2t, 2t+1 and the tf32 A fragment wants k-columns
-//     t, t+4, so V's rows are read in that permuted order (the sum over
-//     keys is order-free). Likewise Q/K dims and V/output columns are
-//     permuted so that every fragment load is one 16-byte ld.shared.
-//   * Tiles are 128-float rows with an XOR swizzle of the 16-byte chunk, so
-//     all three fragment loads are free of bank conflicts.
+// - float32, the parity path (namespace attn_tf32): 3xTF32 on tf32 wgmma
+//   fed by TMA, the operands split into tf32 big and small parts in
+//   shared memory. See the note there.
 // Reading keys in place, with no gather, is E2 (band_attention.cu).
 //
 // The biases are finite (-100 outside the pooled grid, ln(multiplicity) on
@@ -63,304 +39,417 @@
 namespace e2fgvi {
 
 // ---------------------------------------------------------------------------
-// float32: 3xTF32 flash loop
+// float32: 3xTF32 on wgmma
+//
+// Precision: the port pins full float32, and one TF32 pass (10 mantissa
+// bits) lands ~1e-4 off. So each operand x splits into big = rna_tf32(x)
+// and small = rna_tf32(x - big), and each product is small*big +
+// big*small + big*big in float32 (small*small, ~2^-22 relative, is
+// dropped), as the f32 K1 does (deform.cu, namespace fused_tf32). The
+// tensor cores truncate every float32 accumulation toward zero, so the
+// error also grows with the steps chained into one accumulator: the logits
+// keep big*big, big*small and small*big in three accumulators (16 k8
+// steps each), and each key tile's P V (12 steps) starts from zero and
+// joins O by one rounding, O = fma(O, alpha, PV). This lands closer to
+// float64 than the plain float32 version does.
+//
+// What bounds it: operations. At serving shapes (B=14) the three products
+// are 3.04 TFLOP of TF32 work, 6.15 ms at 495 TFLOP/s, against ~3 GB of
+// inputs (0.9 ms at 3.35 TB/s). Beside the tensor cores, shared memory's
+// 128 bytes a clock: S = Q K^T has 32-key B operands, and an SS wgmma
+// m64n32k8 reads 3 KB of operands in its 16 clocks (on the H100, with S
+// as three of them, each product took ~1.6x its time at the TF32 peak;
+// stacking K big over K small cuts a k-step's reads from 9 KB to 7); and
+// every K and V value is split once a block, ~6 instructions and 3
+// shared accesses a value.
+//
+// The design (the choices the earlier tf32 kernel, 3xTF32 on mma.sync
+// m16n8k8, did not face):
+// * One block per (128-query tile, head, b*window), two consumer
+//   warpgroups of 64 query rows and no producer warpgroup: each thread
+//   holds O and the tile's P V (64 + 64 floats), the logits' two
+//   accumulators (16 + 16) and P's big and small A fragments (16 + 16),
+//   ~200 registers of the 255 a thread of a 256-thread block may have.
+//   Thread 0 issues the TMA copies between the block's barriers.
+// * Shared memory (224 KB of the 227): Q split into big and small (2 x 64
+//   KB, split in place once Q has landed), a 32-key K tile split (2 x 16
+//   KB, each 32-dim box's big rows over its small ones), a 32-key V tile
+//   split and transposed (2 x 16 KB) and one raw landing stage each for K
+//   and V (2 x 16 KB). 64-key tiles would need
+//   256 KB; 64-query blocks would halve the reuse of every split K and V
+//   tile; a pre-pass writing split copies of q, k and v would move ~9 GB
+//   more through device memory a call (~2.7 ms). So the tiles are 32
+//   keys, and S's B operand is 32 keys wide: per k-step, m64n64k8 takes
+//   Q big against K big stacked over K small (big*big and big*small in
+//   the two halves of one accumulator) and m64n32k8 Q small against K
+//   big. P V is m64n128k8 with k = 4 steps of 8 keys.
+// * Everything lands by TMA in 128-byte-swizzled boxes of 32 floats
+//   (3-D maps (hd, rows, panels): the ragged last key or query tile reads
+//   zeros, not the next panel's rows, and the -inf bias masks those keys),
+//   the tile's 32 biases by a bulk copy beside K. The split K and the
+//   big/small Q sit in the layout TMA wrote, so their split is elementwise
+//   and in place. tf32 wgmma has no transposed B, so V goes to a (128 dims
+//   x 32 keys) K-major tile while it is split: warp w takes the 16-byte
+//   key chunk w of every dim row (keys 8(w/2) + (w%2) + 2u), lane e dims e
+//   + 32x; its reads are whole 128-byte rows and its writes hit 8 distinct
+//   chunks a quarter warp, free of bank conflicts.
+// * P is the register A operand of P V. The m64 accumulator gives a
+//   thread keys 2t and 2t + 1 of each 8-key block, the tf32 A fragment
+//   wants k-columns t and t + 4; so the transposed V puts key 2u + h of a
+//   block at k-column u + 4h (the sum over keys is order-free), and P
+//   needs no shuffle.
+// * The split work runs beside the tensor cores: while S_j runs, the
+//   threads split V_j; while P_j V_j runs, they split K_{j+1}. Two block
+//   barriers a tile hand the split tiles over (after the softmax: V_j is
+//   whole, S_j is done; after P V: K_{j+1} is whole, V_j is free), and
+//   after each, thread 0 refills the raw stage just read (V_{j+1}, then
+//   K_{j+2} with its biases), so each landing has half to one and a half
+//   tiles of compute to hide behind.
+// * No atomics, one fixed order of every sum: a call is deterministic.
 // ---------------------------------------------------------------------------
-namespace tf32 {
+namespace attn_tf32 {
 
-constexpr int kBQ = 128;            // queries per block: 8 warps x 16 rows
-constexpr int kBK = 64;             // keys per tile
-constexpr int kThreads = kBQ / 16 * 32;
-constexpr int kRowStep = kThreads / 32;  // rows per pass of the copies
-constexpr int kTile = kBK * kHD;    // floats in one K or V stage
-constexpr int kSmemBytes =
-    (kBQ * kHD + 2 * (2 * kTile + kBK)) * (int)sizeof(float);  // 197,120
+using hopper::desc_sw128;
+using hopper::fence_proxy_async;
+using hopper::fence_regs;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::wg_commit;
+using hopper::wg_fence;
+using hopper::wg_wait;
 
-// Float offset of 16-byte chunk `chunk` (0..31) of row r in a tile of
-// 128-float rows. The chunk index is XORed with r's low three bits
-// (bit 0 -> chunk bit 2, bits 1-2 -> chunk bits 0-1): the Q/K loads (rows
-// g, chunk 4c+t) and the V loads (rows 2t+j, chunk 4g+qq) then each hit 8
-// distinct 4-bank groups per quarter warp.
-__device__ __forceinline__ int swz(int r, int chunk) {
-  return r * kHD + ((chunk ^ (((r & 1) << 2) | ((r >> 1) & 3))) << 2);
-}
+constexpr int kBQ = 128;                 // queries per block
+constexpr int kBK = 32;                  // keys per tile
+constexpr int kThreads = 256;            // two consumer warpgroups
+constexpr int kBox = 32;                 // floats per TMA box row: 128 B
+constexpr int kQBox = kBQ * 128;         // one 32-dim box of Q, 16 KB
+constexpr int kQBytes = 4 * kQBox;       // Q, 64 KB (big or small)
+constexpr int kKBox = kBK * 128;         // one 32-dim box of a K tile, 4 KB
+constexpr int kTile = 4 * kKBox;         // a 32 x 128 float tile, 16 KB
+constexpr int kQBig = 0;
+constexpr int kQSmall = kQBig + kQBytes;
+// split K: 4 boxes of 32 dims, each its 32 big rows over its 32 small ones
+constexpr int kKSplit = kQSmall + kQBytes;
+constexpr int kVBig = kKSplit + 2 * kTile;  // split V^T: 128 dims x 32 keys
+constexpr int kVSmall = kVBig + kTile;
+constexpr int kKRaw = kVSmall + kTile;     // landing stages, as TMA wrote
+constexpr int kVRaw = kKRaw + kTile;
+constexpr int kBiasOff = kVRaw + kTile;    // 2 x 32 floats
+constexpr int kBarOff = kBiasOff + 2 * kBK * 4;
+// + 1 KB to align the base to the 128-byte swizzle's 1024-byte period
+constexpr int kSmemBytes = kBarOff + 3 * 8 + 1024;   // 230,680
+static_assert(kSmemBytes <= 232448, "227 KB a block");
 
-// 16-byte copy to shared memory; src_ok false writes zeros and reads
-// nothing from src
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool src_ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool src_ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], unsigned a0,
-                                         unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// a * b in 3xTF32 (a: the A fragment a0..a3, b = (b0, b1)): hi += big*big,
-// lo += small*big + big*small. The tensor cores truncate each float32
-// accumulation toward zero, so the error grows with the number of mma
-// steps chained into one accumulator at full magnitude; the logits keep
-// the corrections (~2^-11 of it) apart, which leaves big*big one step per
-// k-step. P V passes one accumulator as both: its chains end every tile.
-__device__ __forceinline__ void mma3(float (&hi)[4], float (&lo)[4],
-                                     const Split (&a)[4], Split b0,
-                                     Split b1) {
-  mma_tf32(lo, a[0].small, a[1].small, a[2].small, a[3].small, b0.big,
-           b1.big);
-  mma_tf32(lo, a[0].big, a[1].big, a[2].big, a[3].big, b0.small, b1.small);
-  mma_tf32(hi, a[0].big, a[1].big, a[2].big, a[3].big, b0.big, b1.big);
+// one float4 x at src -> rna_tf32(x) at big, the rest at small (big may
+// be src)
+__device__ __forceinline__ void split4(const float4* src, float4* big,
+                                       float4* small) {
+  const float4 x = *src;
+  const Split a = split(x.x), b = split(x.y), c = split(x.z), d = split(x.w);
+  *reinterpret_cast<uint4*>(big) = make_uint4(a.big, b.big, c.big, d.big);
+  *reinterpret_cast<uint4*>(small) =
+      make_uint4(a.small, b.small, c.small, d.small);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-focal_attention_tf32_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const float* __restrict__ bias,
-                            float* __restrict__ out, int heads, int nwin,
-                            int nq, int nk, int ld) {
-  extern __shared__ __align__(128) float smem[];
-  float* Qs = smem;                   // [kBQ][kHD], swizzled
-  float* Ks = Qs + kBQ * kHD;         // [2][kBK][kHD], swizzled
-  float* Vs = Ks + 2 * kTile;         // [2][kBK][kHD], swizzled
-  float* Bs = Vs + 2 * kTile;         // [2][kBK]
+focal_attention_3xtf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, int heads, int nwin,
+                              int nq, int nk, int ld) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - raw);   // generic view
+  const uint32_t q_full = base + kBarOff, k_full = q_full + 8,
+                 v_full = q_full + 16;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group / column
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
-  const int bw = blockIdx.z;              // b * nwin + w
-  const int b = bw / nwin, w = bw % nwin;
-  const long long panel = ((long long)b * heads + h) * nwin + w;
+  const int bw = blockIdx.z;               // b * nwin + w
+  const int b = bw / nwin, w = bw - b * nwin;
+  const int panel = (b * heads + h) * nwin + w;
   const int tiles = (nk + kBK - 1) / kBK;
   const float* brow = bias + (long long)bw * ld;
 
-  // the copies: thread tid moves chunk tid % 32 of rows
-  // tid / 32 + kRowStep * i
-  const int cc = tid & 31, cr = tid >> 5;
-  for (int i = 0; i < kBQ / kRowStep; ++i) {
-    const int r = cr + kRowStep * i;
-    const bool ok = q0 + r < nq;
-    cp_async16(Qs + swz(r, cc),
-               ok ? q + (panel * nq + q0 + r) * kHD + cc * 4 : q, ok);
-  }
-  auto load_tile = [&](int it, int st) {
-    const int j0 = it * kBK;
+  // thread 0: raw K tile j (four 32-dim boxes) and its biases into bias
+  // slot j & 1; raw V tile j
+  auto load_k = [&](int j) {
+    mbar_expect_tx(k_full, kTile + kBK * 4);
 #pragma unroll
-    for (int i = 0; i < kBK / kRowStep; ++i) {
-      const int r = cr + kRowStep * i;
-      const int jj = j0 + r;
-      const bool ok = jj < nk;
-      const long long off = ok ? (panel * nk + jj) * kHD + cc * 4 : 0;
-      cp_async16(Ks + st * kTile + swz(r, cc), k + off, ok);
-      cp_async16(Vs + st * kTile + swz(r, cc), v + off, ok);
-    }
-    if (tid < kBK) {
-      const int jj = j0 + tid;
-      const bool ok = jj < nk;
-      cp_async4(Bs + st * kBK + tid, ok ? brow + jj : brow, ok);
+    for (int x = 0; x < 4; ++x)
+      hopper::tma_load(base + kKRaw + x * kKBox, &kmap, k_full, kBox * x,
+                       j * kBK, panel);
+    hopper::bulk_load(base + kBiasOff + (j & 1) * kBK * 4, brow + j * kBK,
+                      kBK * 4, k_full);
+  };
+  auto load_v = [&](int j) {
+    mbar_expect_tx(v_full, kTile);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      hopper::tma_load(base + kVRaw + x * kKBox, &vmap, v_full, kBox * x,
+                       j * kBK, panel);
+  };
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, kQBytes);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      hopper::tma_load(base + kQBig + x * kQBox, &qmap, q_full, kBox * x, q0,
+                       panel);
+    load_k(0);
+    load_v(0);
+  }
+  __syncthreads();
+
+  // the landed raw K tile into split K, each box's 4 KB of big rows over
+  // its small ones (TMA's layout: rows 32 apart share their swizzle)
+  auto split_k = [&]() {
+    const float4* kr = reinterpret_cast<const float4*>(sm + kKRaw);
+    float4* ksp = reinterpret_cast<float4*>(sm + kKSplit);
+#pragma unroll
+    for (int i = tid; i < kTile / 16; i += kThreads) {
+      float4* big = ksp + i + (i / (kKBox / 16)) * (kKBox / 16);
+      split4(kr + i, big, big + kKBox / 16);
     }
   };
-  load_tile(0, 0);
-  cp_async_commit();
-
-  // Per-thread fragment offsets. Q and K: row g (+8 for Q's second half),
-  // dims 16c + 4t .. +3 of 16-dim chunk c; with the swizzle the chunk is
-  // 4c + t XOR f(g), f(g) = ((g & 1) << 2) | (g >> 1): even and odd c take
-  // two bases. V: rows 2t + j of each 8-key block, columns 16g + 4q .. +3.
-  const int fq = ((g & 1) << 2) | (g >> 1);
-  const int qk_base = g * kHD + ((t ^ (fq & 3)) << 2);
-  const int qk_even = qk_base + ((fq & 4) << 2);
-  const int qk_odd = qk_base - ((fq & 4) << 2);
-  const float* Qw = Qs + warp * 16 * kHD;
-
-  float o[kHD / 8][4];
+  // the landed raw V tile into split V^T: row d (dim) of 128 bytes holds
+  // the tile's keys in k-column order, key 8i + 2u + hh at column 8i + 4hh
+  // + u. Warp vw writes 16-byte chunk vw of every row (i = vw / 2, hh =
+  // vw % 2: keys 8i + hh + 2u, u = 0..3); lane ve dims ve + 32x.
+  const int vw = tid >> 5, ve = tid & 31;
+  auto split_v = [&]() {
+    float x[4][4];
 #pragma unroll
-  for (int n = 0; n < kHD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-
-  for (int it = 0; it < tiles; ++it) {
-    // tile it (and Q) has landed and every warp is done with tile it - 1,
-    // whose stage tile it + 1 now overwrites
-    cp_async_wait_all();
-    __syncthreads();
-    if (it + 1 < tiles) load_tile(it + 1, (it + 1) & 1);
-    cp_async_commit();
-
-    const int st = it & 1;
-    const float* Kt = Ks + st * kTile;
-    const float* Vt = Vs + st * kTile;
-    const float* Bt = Bs + st * kBK;
-    const int lim = nk - it * kBK;
-
-    // S (16 x 64) = Q K^T. In 16-dim chunk c, k-step 0 takes dims
-    // 16c + 4t (A/B column t) and 16c + 4t + 1 (column t + 4), k-step 1
-    // dims 16c + 4t + 2 and + 3: one float4 feeds both k-steps.
-    float s[kBK / 8][4] = {}, sl[kBK / 8][4] = {};
+    for (int u = 0; u < 4; ++u) {
+      const int kr = 8 * (vw >> 1) + (vw & 1) + 2 * u;
+      const unsigned char* row = sm + kVRaw + kr * 128 +
+                                 ((((ve >> 2) ^ (kr & 7)) << 4) |
+                                  ((ve & 3) << 2));
 #pragma unroll
-    for (int c = 0; c < kHD / 16; ++c) {
-      const int off = ((c & 1) ? qk_odd : qk_even) + c * 16;
-      const float4 qa = *reinterpret_cast<const float4*>(Qw + off);
-      const float4 qb = *reinterpret_cast<const float4*>(Qw + 8 * kHD + off);
-      const Split a0[4] = {split(qa.x), split(qb.x), split(qa.y), split(qb.y)};
-      const Split a1[4] = {split(qa.z), split(qb.z), split(qa.w), split(qb.w)};
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(Kt + n * 8 * kHD + off);
-        mma3(s[n], sl[n], a0, split(kv.x), split(kv.y));
-        mma3(s[n], sl[n], a1, split(kv.z), split(kv.w));
-      }
+      for (int xb = 0; xb < 4; ++xb)
+        x[xb][u] = *reinterpret_cast<const float*>(row + xb * kKBox);
     }
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
+    for (int xb = 0; xb < 4; ++xb) {
+      const int d = ve + 32 * xb;
+      const int off = d * 128 + ((vw ^ (d & 7)) << 4);
+      const Split s0 = split(x[xb][0]), s1 = split(x[xb][1]),
+                  s2 = split(x[xb][2]), s3 = split(x[xb][3]);
+      *reinterpret_cast<uint4*>(sm + kVBig + off) =
+          make_uint4(s0.big, s1.big, s2.big, s3.big);
+      *reinterpret_cast<uint4*>(sm + kVSmall + off) =
+          make_uint4(s0.small, s1.small, s2.small, s3.small);
+    }
+  };
 
-    // online softmax over rows g (s[n][0..1]) and g + 8 (s[n][2..3]);
-    // key n*8 + 2t (+1) of the tile, -inf past the panel's end
+  // Q: split in place, big over the raw values
+  mbar_wait(q_full, 0);
+  {
+    float4* qb = reinterpret_cast<float4*>(sm + kQBig);
+    float4* qs = reinterpret_cast<float4*>(sm + kQSmall);
+#pragma unroll 4
+    for (int i = tid; i < kQBytes / 16; i += kThreads)
+      split4(qb + i, qb + i, qs + i);
+  }
+  mbar_wait(k_full, 0);
+  split_k();
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0 && tiles > 1) load_k(1);
+
+  const int c = tid >> 7;                  // warpgroup: query rows 64c ..
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // A operands: this warpgroup's 64 rows of each 32-dim box of Q
+  const uint32_t qa = base + kQBig + c * 64 * 128;
+  float o[64], acc[64], sh[32], sl[16];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sh[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sl[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};  // rows g, g + 8
+  float l_r[2] = {0.f, 0.f};
+
+  for (int j = 0; j < tiles; ++j) {
+    // S (64 x 32 keys) = Q K^T. k-step kk reads dims 8kk.. (box kk / 4,
+    // byte 32 (kk % 4) of each row). One n64 wgmma takes Q big against
+    // K's stacked big and small rows: sh[0..15] = big*big, sh[16..31] =
+    // big*small; sl = small*big. Stacked, B is read once for two products:
+    // 7 KB of operands a k-step instead of 9.
+    fence_regs(sh);
+    fence_regs(sl);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHD / 8; ++kk) {
+      const uint32_t oq = (kk >> 2) * kQBox + (kk & 3) * 32;
+      const uint32_t ok = (kk >> 2) * 2 * kKBox + (kk & 3) * 32;
+      const uint64_t qbig = desc_sw128(qa + oq, 16, 1024);
+      const uint64_t qsmall = desc_sw128(qa + kQBytes + oq, 16, 1024);
+      const uint64_t kst = desc_sw128(base + kKSplit + ok, 16, 1024);
+      hopper::wgmma_tf32_n64(sh, qbig, kst, kk > 0);
+      hopper::wgmma_tf32_n32(sl, qsmall, kst, kk > 0);
+    }
+    wg_commit();
+    // V_j into split V^T while S_j runs (P_{j-1} V_{j-1} is done in both
+    // warpgroups: the barrier at the end of tile j - 1)
+    mbar_wait(v_full, j & 1);
+    split_v();
+    fence_proxy_async();
+    wg_wait<0>();
+    fence_regs(sh);
+    fence_regs(sl);
+
+    // sh[4i + e], sh[16 + 4i + e], sl[4i + e]: row g (e < 2) or g + 8, key
+    // 8i + 2t + (e & 1); online softmax over the row's 32 keys (a quad's
+    // 4 lanes)
+    const float* bt =
+        reinterpret_cast<const float*>(sm + kBiasOff) + (j & 1) * kBK;
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      const int k0 = n * 8 + 2 * t;
-      const float b0 = k0 < lim ? Bt[k0] : -INFINITY;
-      const float b1 = k0 + 1 < lim ? Bt[k0 + 1] : -INFINITY;
-      s[n][0] += b0;
-      s[n][1] += b1;
-      s[n][2] += b0;
-      s[n][3] += b1;
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    for (int i = 0; i < 4; ++i) {
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * i + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * i + e;
+        sh[x] = (sh[x] + (sh[16 + x] + sl[x])) + ((e & 1) ? bb.y : bb.x);
+      }
+      mx[0] = fmaxf(mx[0], fmaxf(sh[4 * i], sh[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(sh[4 * i + 2], sh[4 * i + 3]));
     }
     float alpha[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      alpha[i] = __expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-      l_r[i] *= alpha[i];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = __expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+      l_r[r] *= alpha[r];
     }
+    // P's A fragments, k-step i = keys 8i..8i+7: column t is key 8i + 2t
+    // (sh[4i], row g; sh[4i + 2], row g + 8), column t + 4 key 8i + 2t + 1
+    uint32_t pb[4][4], ps[4][4];
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = __expf(s[n][0] - m_r[0]);
-      s[n][1] = __expf(s[n][1] - m_r[0]);
-      s[n][2] = __expf(s[n][2] - m_r[1]);
-      s[n][3] = __expf(s[n][3] - m_r[1]);
-      l_r[0] += s[n][0] + s[n][1];
-      l_r[1] += s[n][2] + s[n][3];
-    }
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int n = 0; n < kHD / 8; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O (16 x 128) += P (16 x 64) V. Key block n: A column t is key
-    // n*8 + 2t (s[n][0], s[n][2]), column t + 4 key n*8 + 2t + 1, so B row
-    // t is V row n*8 + 2t and row t + 4 is V row n*8 + 2t + 1. B column g
-    // of output tile np is V column 16g + np: a thread's float4 qq of a V
-    // row holds its B values for np = 4qq .. 4qq + 3. The tile's sum for
-    // those 4 output tiles builds in a fresh accumulator (24 mma steps) and
-    // joins O by a rounded add, so no accumulator chains mma steps across
-    // tiles.
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      // rows 2t (j = 0) and 2t + 1 (j = 1) of a block: f = (j << 2) | t
-      const int ch = 4 * g + qq;
-      const float* V0 = Vt + 2 * t * kHD + ((ch ^ t) << 2);
-      const float* V1 = Vt + (2 * t + 1) * kHD + ((ch ^ (4 | t)) << 2);
-      float acc[4][4] = {};
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const float4 va = *reinterpret_cast<const float4*>(V0 + n * 8 * kHD);
-        const float4 vb = *reinterpret_cast<const float4*>(V1 + n * 8 * kHD);
-        const Split pn[4] = {split(s[n][0]), split(s[n][2]), split(s[n][1]),
-                             split(s[n][3])};
-        mma3(acc[0], acc[0], pn, split(va.x), split(vb.x));
-        mma3(acc[1], acc[1], pn, split(va.y), split(vb.y));
-        mma3(acc[2], acc[2], pn, split(va.z), split(vb.z));
-        mma3(acc[3], acc[3], pn, split(va.w), split(vb.w));
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sh[4 * i + e] - m_r[e >> 1]);
+        l_r[e >> 1] += p;
+        const Split sp = split(p);
+        // e = 0, 1, 2, 3 -> a0 (g, t), a2 (g, t + 4), a1 (g + 8, t),
+        // a3 (g + 8, t + 4)
+        const int a = ((e & 1) << 1) | (e >> 1);
+        pb[i][a] = sp.big;
+        ps[i][a] = sp.small;
       }
+    }
+    // V_j is whole and S_j done in both warpgroups (split K free); the raw
+    // V stage is read
+    __syncthreads();
+    if (tid == 0 && j + 1 < tiles) load_v(j + 1);
+
+    // P V_j (64 x 128) from zero; B k-step kk is bytes 32kk.. of each of
+    // V^T's 128 rows
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const uint64_t vbig = desc_sw128(base + kVBig + kk * 32, 16, 1024);
+      const uint64_t vsmall = desc_sw128(base + kVSmall + kk * 32, 16, 1024);
+      hopper::wgmma_tf32_rs(acc, ps[kk], vbig, kk > 0);
+      hopper::wgmma_tf32_rs(acc, pb[kk], vsmall, 1);
+      hopper::wgmma_tf32_rs(acc, pb[kk], vbig, 1);
+    }
+    wg_commit();
+    // K_{j+1} into split K while P V_j runs
+    if (j + 1 < tiles) {
+      mbar_wait(k_full, (j + 1) & 1);
+      split_k();
+      fence_proxy_async();
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    // P's fragments stay in their registers until the wgmma that read
+    // them are done
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
+        asm volatile("" ::"r"(pb[i][e]), "r"(ps[i][e]) : "memory");
+    // acc[4i + e]: row g (e < 2) or g + 8, dim 8i + 2t + (e & 1)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) o[4 * qq + e][r] += acc[e][r];
-    }
+    for (int i = 0; i < 64; ++i)
+      o[i] = fmaf(o[i], alpha[(i >> 1) & 1], acc[i]);
+    // K_{j+1} is whole, P V_j done in both warpgroups (V^T free); the raw
+    // K stage and bias slot j & 1 are read
+    __syncthreads();
+    if (tid == 0 && j + 2 < tiles) load_k(j + 2);
   }
 
-  // o[np][0..1] are row g, output columns 32t + np and 32t + 16 + np
-  // (B column 2t, 2t + 1 of tile np); [2..3] the same for row g + 8
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-  }
   const int ldo = heads * kHD;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + warp * 16 + g + 8 * i;
-    if (r >= nq) continue;
-    const float inv = 1.f / l_r[i];
-    float* dst = out + ((long long)bw * nq + r) * ldo + h * kHD + 32 * t;
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    const int row = q0 + c * 64 + warp * 16 + g + 8 * r;
+    if (row >= nq) continue;
+    const float inv = 1.f / l_r[r];
+    float* dst = out + ((long long)bw * nq + row) * ldo + h * kHD + 2 * t;
 #pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        *reinterpret_cast<float4*>(dst + 16 * j + 4 * qq) = make_float4(
-            o[4 * qq][2 * i + j] * inv, o[4 * qq + 1][2 * i + j] * inv,
-            o[4 * qq + 2][2 * i + j] * inv, o[4 * qq + 3][2 * i + j] * inv);
-      }
+    for (int i = 0; i < 16; ++i) {
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
     }
   }
+}
+
+// (hd, rows, panels) float32 as 32-dim x box_rows boxes, 128-byte swizzle;
+// rows past `rows` read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int panels,
+              int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)kHD, (cuuint64_t)rows,
+                              (cuuint64_t)panels};
+  const cuuint64_t strides[2] = {(cuuint64_t)kHD * 4,
+                                 (cuuint64_t)rows * kHD * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
+  return hopper::encode_sw128(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, dims,
+                              strides, box);
 }
 
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, int B, int heads, int nwin, int nq, int nk, int ld,
            cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      focal_attention_tf32_kernel,
+      focal_attention_3xtf32_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   if (B == 0 || nq == 0) return (int)cudaGetLastError();
+  if (hopper::encoder() == nullptr || ld % kBK != 0 || ld < nk)
+    return (int)cudaErrorInvalidValue;
+  const int panels = B * heads * nwin;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, nq, panels, kBQ) ||
+      !make_map(&kmap, k, nk, panels, kBK) ||
+      !make_map(&vmap, v, nk, panels, kBK))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((nq + kBQ - 1) / kBQ, heads, B * nwin);
-  focal_attention_tf32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(bias),
+  focal_attention_3xtf32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<const float*>(bias),
       static_cast<float*>(out), heads, nwin, nq, nk, ld);
   return (int)cudaGetLastError();
 }
 
-}  // namespace tf32
+}  // namespace attn_tf32
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma + TMA with a producer warpgroup
@@ -516,8 +605,8 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
 // Plain C entry point, loaded with ctypes (kernels/build.py). Makes
 // `device` current for this library's runtime, launches on `stream` and
 // returns cudaGetLastError(); hd must be 128 and the bias row stride ld a
-// multiple of 128 (-inf past nk). bfloat16 runs the wgmma kernel, float32
-// the 3xTF32 kernel.
+// multiple of 128 (-inf past nk). bfloat16 runs the bf16 wgmma kernel,
+// float32 the 3xTF32 wgmma kernel.
 extern "C" int e2fgvi_focal_attention(int dtype, const void* q,
                                       const void* k, const void* v,
                                       const void* bias, void* out, int B,
@@ -532,6 +621,6 @@ extern "C" int e2fgvi_focal_attention(int dtype, const void* q,
     return e2fgvi::hopper::launch(q, k, v, bias, out, B, heads, nwin, nq, nk,
                                   ld, s);
   }
-  return e2fgvi::tf32::launch(q, k, v, bias, out, B, heads, nwin, nq, nk, ld,
-                              s);
+  return e2fgvi::attn_tf32::launch(q, k, v, bias, out, B, heads, nwin, nq, nk,
+                                   ld, s);
 }

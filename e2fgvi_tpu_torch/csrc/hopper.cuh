@@ -9,9 +9,9 @@
 //   completion arrives on an mbarrier, the proxy fence that lets wgmma
 //   read what they wrote, and named barriers for one warpgroup;
 // - wgmma m64n128k16 (bf16 in, f32 accumulate) with A from shared memory
-//   or registers, wgmma m64n128k8 (tf32 in, both operands K-major in
-//   shared memory), their 128-byte-swizzle descriptor and the group
-//   fences;
+//   or registers, wgmma m64n128k8, m64n64k8 and m64n32k8 (tf32 in, both
+//   operands K-major in shared memory) and m64n128k8 with a tf32 A from
+//   registers, their 128-byte-swizzle descriptor and the group fences;
 // - the host's cuTensorMapEncodeTiled, looked up in the libcuda PyTorch
 //   has loaded: the kernel library links no driver API.
 #pragma once
@@ -150,9 +150,10 @@ __device__ __forceinline__ void wg_wait() {
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma issue/wait points
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define E2FGVI_WGMMA_D                                                        \
@@ -212,6 +213,58 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
       ", %64, %65, p, 1, 1;\n}\n"
       : E2FGVI_WGMMA_D_OPS(d)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x32, f32) = (accumulate ? d : 0) + A (64x8) B (8x32), A and B tf32
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x64, f32) = (accumulate ? d : 0) + A (64x8) B (8x64), A and B tf32
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x128, f32) = (accumulate ? d : 0) + A (64x8, tf32 in registers: a
+// thread holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of its warp's
+// 16 rows, as mma.sync m16n8k8 does) B (8x128, tf32 K-major in shared
+// memory)
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " E2FGVI_WGMMA_D
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : E2FGVI_WGMMA_D_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

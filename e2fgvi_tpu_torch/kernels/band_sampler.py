@@ -28,10 +28,11 @@ matter; torch's uint32 has few operations):
   pack_cpairs (E1): word c = bf16 channel 2c in the low half, channel
       2c+1 in the high half.
 
-E5 and E6 run one staged kernel (csrc/band_sampler.cu band_staged_kernel):
-a block per (i, y-tile) for all taps and channels, the tile's slab rows
-copied into shared memory by channel chunk. `plan` picks the tile height
-and the chunk; a shape it cannot fit raises ValueError.
+E5, E6 and E1 run one staged kernel (csrc/band_sampler.cu
+band_staged_kernel): a block per (i, y-tile) for all taps and channels, the
+tile's slab rows copied into shared memory by channel chunk (E1: by chunk
+of channel-pair words). `plan` picks the tile height and the chunk; a shape
+it cannot fit raises ValueError.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then;
 for CUDA tensors it launches its kernel or raises. Kernels are
@@ -246,7 +247,7 @@ def band_sample_cbatch_plain(src, py, px, mask, dy_lo):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, src, py, px, mask, cg_out=None):
+def _check(name, src, py, px, mask):
     """Validate a launch; returns (NG, K, CG, HP, WP, band)."""
     check_cuda_inputs(name, src, py, px, mask)
     if src.dim() != 4 or py.dim() != 4:
@@ -263,7 +264,7 @@ def _check(name, src, py, px, mask, cg_out=None):
         raise ValueError(f"{name}: py, px and mask must be float32")
     if hs <= hp or wp < 2:
         raise ValueError(f"{name}: need HS > HP and WP >= 2")
-    return ng, k, cg if cg_out is None else cg_out, hp, wp, hs - hp
+    return ng, k, cg, hp, wp, hs - hp
 
 
 def _prep(src, py, px, mask):
@@ -271,28 +272,32 @@ def _prep(src, py, px, mask):
             mask.contiguous())
 
 
-def _vx(wp, esize, *tensors):
+def _vx(wp, esize, lanes, *tensors):
     """Consecutive x a thread of the staged kernel takes: 8 for 4-byte
-    source elements, 4 for bfloat16 (the faster on the H100 at the
-    experiments' shapes), where WP allows and the position and output rows
-    are 16-byte aligned; else 4, else 1."""
-    for vx in (8, 4) if esize == 4 else (4,):
+    source elements of one channel, 4 for bfloat16 and for channel pairs
+    (`lanes` 2: 8 outputs an x group, as E5's bfloat16 at 4), where WP
+    allows and the position and output rows are 16-byte aligned; else 4,
+    else 1."""
+    for vx in (8, 4) if esize == 4 and lanes == 1 else (4,):
         if wp % vx == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
             return vx
     return 1
 
 
-def _launch_staged(name, entry, lead, src, py, px, mask, dy_lo, out_dtype):
+def _launch_staged(name, entry, lead, src, py, px, mask, dy_lo, out_dtype,
+                   lanes=1):
     """Check, plan and launch the staged kernel through the C entry point
-    `entry` (`lead`: its arguments before the pointers); returns the
+    `entry` (`lead`: its arguments before the pointers); `lanes`: output
+    channels a source element holds (2 for channel-pair words). Returns the
     output."""
     ng, k, cg, hp, wp, band = _check(name, src, py, px, mask)
     p = plan(cg, hp, wp, band, src.element_size(), k)
-    out = torch.empty((ng, k, cg, hp, wp), dtype=out_dtype, device=src.device)
+    out = torch.empty((ng, k, lanes * cg, hp, wp), dtype=out_dtype,
+                      device=src.device)
     err = getattr(build.library(), entry)(
         *lead, src.data_ptr(), py.data_ptr(), px.data_ptr(), mask.data_ptr(),
         out.data_ptr(), ng, k, cg, hp, wp, band, dy_lo, p.ty, p.chunk,
-        _vx(wp, src.element_size(), py, px, mask, out),
+        _vx(wp, src.element_size(), lanes, py, px, mask, out),
         *build.stream_args(src))
     build.check(err, name)
     LAUNCHES[name] += 1
@@ -348,24 +353,17 @@ def band_sample_xpair(psrc, py, px, mask, dy_lo):
 
 
 def band_sample_cpair(psrc, py, px, mask, dy_lo):
-    """E1: psrc from pack_cpairs, (NG, CG/2, HS, WP) int32; one thread per
-    (i, t, channel pair, y, x), one 32-bit load per corner and row gives
-    two channels. Writes channels 2c and 2c+1 in bfloat16, bit-equal to
-    band_sample on the unpacked bfloat16 src."""
+    """E1: psrc from pack_cpairs, (NG, CG/2, HS, WP) int32; the staged
+    kernel on channel-pair words (planned as CG/2 channels of 4 bytes), one
+    32-bit shared load per corner and row gives two channels. Writes
+    channels 2c and 2c+1 in bfloat16, bit-equal to band_sample on the
+    unpacked bfloat16 src."""
     if psrc.device.type == "cpu":
         return band_sample_plain(unpack_cpairs(psrc), py, px, mask, dy_lo)
     psrc, py, px, mask = _prep(psrc, py, px, mask)
-    ng, k, cg, hp, wp, band = _check("band_sample_cpair", psrc, py, px,
-                                     mask, 2 * psrc.shape[1])
     if psrc.dtype != torch.int32:
         raise ValueError("band_sample_cpair: psrc must be int32 "
                          "(pack_cpairs)")
-    out = torch.empty((ng, k, cg, hp, wp), dtype=torch.bfloat16,
-                      device=psrc.device)
-    err = build.library().e2fgvi_band_sample_cpair(
-        psrc.data_ptr(), py.data_ptr(), px.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), ng, k, cg // 2, hp, wp, band, dy_lo,
-        *build.stream_args(psrc))
-    build.check(err, "band_sample_cpair")
-    LAUNCHES["band_sample_cpair"] += 1
-    return out
+    return _launch_staged("band_sample_cpair", "e2fgvi_band_sample_cpair",
+                          (), psrc, py, px, mask, dy_lo, torch.bfloat16,
+                          lanes=2)

@@ -35,7 +35,7 @@ _SIGNATURES = {
     "e2fgvi_band_sample": [_I, _I] + [_P] * 5 + [_I] * 11 + [_P],
     "e2fgvi_band_sample_cbatch": [_I] + [_P] * 5 + [_I] * 11 + [_P],
     "e2fgvi_band_sample_xpair": [_P] * 5 + [_I] * 11 + [_P],
-    "e2fgvi_band_sample_cpair": [_P] * 5 + [_I] * 8 + [_P],
+    "e2fgvi_band_sample_cpair": [_P] * 5 + [_I] * 11 + [_P],
     "e2fgvi_row_gather": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
     "e2fgvi_bilinear4_sample": [_P] * 5 + [_I] * 6 + [_P],
     "e2fgvi_band_attention": [_P] * 6 + [_I] * 12 + [_F, _I, _P],
@@ -85,10 +85,12 @@ def build() -> tuple[Path, str]:
     one nvcc per source, all at once, then one link.
 
     Returns (library path, nvcc's output: ptxas register and spill counts,
-    empty when nothing was compiled)."""
+    kept beside the library as <name>.log, so a cached build returns the
+    log of the build that made it; empty where that log is missing)."""
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, ""
+        return out, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     nvcc = _nvcc()
@@ -99,6 +101,7 @@ def build() -> tuple[Path, str]:
         lib = os.path.join(tmp, "lib.so")
         log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
                           *objs]])
+        log_path.write_text(log)
         os.replace(lib, out)
     return out, log
 

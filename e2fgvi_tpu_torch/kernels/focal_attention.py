@@ -104,7 +104,7 @@ def focal_attention_kernel(q, k, v, bias, b, heads):
     if hd != HEAD_DIM:
         raise ValueError(f"focal_attention: head dim {hd}, the kernel "
                          f"takes {HEAD_DIM}")
-    # TMA (bf16) and 16-byte cp.async (f32) read from 16-byte addresses
+    # TMA reads from 16-byte addresses (both dtypes)
     if any(t.data_ptr() % 16 for t in (q, k, v, bias)):
         raise ValueError("focal_attention: q/k/v must be 16-byte aligned")
     out = torch.empty((b * nwin, nq, heads * hd), dtype=q.dtype,

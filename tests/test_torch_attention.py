@@ -1,7 +1,7 @@
 """K3's plain version and the port's focal window attention against the JAX
-package, float32, tolerance 2e-4; a float32 emulation of the bf16 kernel's
-tile schedule against the plain version; the port's static key and bias
-tables equal the JAX package's."""
+package, float32, tolerance 2e-4; float32 emulations of the bf16 and the
+float32 kernels' tile schedules against the plain version; the port's
+static key and bias tables equal the JAX package's."""
 
 import jax
 import jax.numpy as jnp
@@ -208,6 +208,129 @@ def test_k3_bf16_tile_schedule_matches_plain(case):
     got = _emulate_wgmma_kernel(q, k, v, bias, b, heads)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() / want.abs().max() <= 1e-2
+
+
+def _tf32_kernel_sizes():
+    """(query block, key tile) of the float32 kernel, read from its source
+    (csrc/focal_attention.cu, namespace attn_tf32)."""
+    import re
+    from pathlib import Path
+    src = (Path(fa.__file__).resolve().parents[1] / "csrc" /
+           "focal_attention.cu").read_text()
+    body = src[src.index("namespace attn_tf32 {"):
+               src.index("}  // namespace attn_tf32")]
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               body).group(1)) for name in ("kBQ", "kBK"))
+
+
+def _split(x):
+    """x = big + small, both rna tf32 (the kernel's split)."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _emulate_tf32_wgmma_kernel(q, k, v, bias, b, heads):
+    """The float32 kernel's schedule (csrc/focal_attention.cu, namespace
+    attn_tf32) in numpy float32: its query blocks and key tiles, rows past
+    the panel's end zeros (TMA's out-of-bounds fill) with the wrapper's
+    -inf bias padding; Q, K, V and P split into rna tf32 big and small
+    parts; the logits' big*big, big*small and small*big summed apart,
+    big*big last; online softmax; P's A fragment columns and V^T's
+    k-columns in the kernel's key orders (the fragment: column t is key 2t
+    and t + 4 key 2t + 1 of an 8-key block; split V: warp w's chunk holds
+    keys 8(w/2) + w%2 + 2u at columns 4w + u); each tile's P V from zero,
+    joined by O = fma(O, alpha, PV)."""
+    bq, bk = _tf32_kernel_sizes()
+    q, k, v = (np.asarray(x, np.float32) for x in (q, k, v))
+    panels, nq, hd = q.shape
+    nk = k.shape[1]
+    nwin = panels // (b * heads)
+    bias_p = fa.padded_bias(torch.from_numpy(np.asarray(bias))).numpy()
+    tiles = -(-nk // bk)
+    kp = np.zeros((panels, tiles * bk, hd), np.float32)
+    vp = np.zeros((panels, tiles * bk, hd), np.float32)
+    kp[:, :nk], vp[:, :nk] = k, v
+    nq_pad = -(-nq // bq) * bq
+    qp = np.zeros((panels, nq_pad, hd), np.float32)
+    qp[:, :nq] = q
+    col = np.arange(bk)
+    blk, c8 = col // 8 * 8, col % 8
+    a_key = blk + np.where(c8 < 4, 2 * c8, 2 * (c8 - 4) + 1)
+    w, u = col // 4, col % 4
+    vt_key = 8 * (w // 2) + w % 2 + 2 * u
+    out = np.empty((b * nwin, nq, heads * hd), np.float32)
+    for p in range(panels):
+        bb, rem = divmod(p, heads * nwin)
+        h, win = divmod(rem, nwin)
+        brow = bias_p[bb * nwin + win]
+        for q0 in range(0, nq_pad, bq):
+            qb, qs = _split(qp[p, q0:q0 + bq])
+            m = np.full((bq, 1), -np.inf, np.float32)
+            l = np.zeros((bq, 1), np.float32)
+            o = np.zeros((bq, hd), np.float32)
+            for k0 in range(0, tiles * bk, bk):
+                kb, ks = _split(kp[p, k0:k0 + bk])
+                s = (qb @ kb.T + (qb @ ks.T + qs @ kb.T)) + brow[k0:k0 + bk]
+                m_new = np.maximum(m, s.max(1, keepdims=True))
+                alpha = np.exp(m - m_new)
+                pt = np.exp(s - m_new)
+                l = l * alpha + pt.sum(1, keepdims=True)
+                pb, ps = _split(pt[:, a_key])
+                vb, vs = _split(vp[p, k0:k0 + bk][vt_key])
+                acc = ps @ vb + pb @ vs + pb @ vb
+                o = (o.astype(np.float64) * alpha + acc).astype(np.float32)
+                m = m_new
+            rows = min(bq, nq - q0)
+            out[bb * nwin + win, q0:q0 + rows, h * hd:(h + 1) * hd] = (
+                o / l)[:rows]
+    return out
+
+
+def _attend64(q, k, v, bias, b, heads):
+    """focal_attention_plain's function in float64."""
+    nq, hd = q.shape[1], q.shape[2]
+    nk = k.shape[1]
+    nwin = q.shape[0] // (b * heads)
+    qf, kf, vf = (x.double().reshape(b, heads, nwin, -1, hd)
+                  for x in (q, k, v))
+    s = torch.einsum("bhwqd,bhwkd->bhwqk", qf, kf)
+    s = s + bias.double().reshape(b, 1, nwin, 1, nk)
+    o = torch.einsum("bhwqk,bhwkd->bhwqd", torch.softmax(s, dim=-1), vf)
+    return o.permute(0, 2, 3, 1, 4).reshape(b * nwin, nq, heads * hd)
+
+
+@pytest.mark.parametrize("case", ["serving", "ragged", "first_frame_only"])
+def test_k3_f32_tile_schedule_matches_plain(case):
+    """The emulated float32 kernel against the plain version at <= 1e-5
+    max |delta| (chip_smoke.F32_MAX_ABS's bar for the kernel), and against
+    float64 no worse than 2x the plain float32 version: catches a tiling,
+    masking or key-order error before a run on the card. Cases as in
+    test_k3_bf16_tile_schedule_matches_plain; the serving panel is 91
+    32-key tiles, the last ragged; 129 keys end one key into a tile."""
+    rng = np.random.default_rng(4)
+    nq, nk, b, heads, nwin = {"serving": (765, 2890, 1, 1, 2),
+                              "ragged": (129, 129, 2, 2, 1),
+                              "first_frame_only": (765, 2890, 1, 2, 1)}[case]
+    hd = 128
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b * heads * nwin, n, hd)).astype(np.float32) * np.float32(sc))
+        for n, sc in ((nq, hd ** -0.5), (nk, 1.0), (nk, 1.0)))
+    bias = torch.from_numpy(rng.choice(
+        np.array([0.0, -100.0, np.log(2.0)], np.float32),
+        size=(b * nwin, nk)))
+    if case == "first_frame_only":
+        keep = torch.zeros(nk, dtype=torch.bool)
+        keep[:45] = True
+        keep[765:765 + 125] = True
+        bias = torch.where(keep, bias, torch.full_like(bias, -1e9))
+    want = fa.focal_attention_plain(q, k, v, bias, b, heads)
+    want64 = _attend64(q, k, v, bias, b, heads)
+    got = torch.from_numpy(_emulate_tf32_wgmma_kernel(q, k, v, bias, b,
+                                                      heads))
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-5
+    err_plain = (want.double() - want64).abs().max()
+    assert (got.double() - want64).abs().max() <= 2 * err_plain
 
 
 def _attn_params(rng, c):

@@ -148,10 +148,13 @@ def test_pack_refuses_wrong_dtypes():
 # exp_dcn_pack: 16 channels of a 64x128 tile)
 PLAN_SHAPES = {"ragged": (6, 7, 19), "ragged_hp": (5, 20, 24),
                "aligned": (4, 16, 128), "experiments": (16, 64, 128)}
-# element: (bytes, source dtype of the emulation, output dtype)
-ELEMENTS = {"float32": (4, torch.float32, torch.float32),
-            "bfloat16": (2, torch.bfloat16, torch.bfloat16),
-            "packed": (4, torch.bfloat16, torch.bfloat16)}
+# element: (bytes, source dtype of the emulation, output dtype, output
+# channels an element holds): E5 float32 and bfloat16, E6's x-pair words
+# ("packed") and E1's channel-pair words ("cpair": CG words of 2 channels)
+ELEMENTS = {"float32": (4, torch.float32, torch.float32, 1),
+            "bfloat16": (2, torch.bfloat16, torch.bfloat16, 1),
+            "packed": (4, torch.bfloat16, torch.bfloat16, 1),
+            "cpair": (4, torch.bfloat16, torch.bfloat16, 2)}
 
 
 def _admitted_rows(py, y0, tyn, band, dy_lo):
@@ -174,9 +177,11 @@ def test_plan_fits_and_blocks_equal_plain(band, element, shape):
     """The plan fits in 227 KB; its tiles' staged rows hold every slab row
     a band-admitted tap reaches; and band_sample_plain run one (i, y-tile,
     channel chunk) at a time on the staged rows alone, with NaN rows after
-    them, is bit-equal to band_sample_plain on the whole source."""
+    them, is bit-equal to band_sample_plain on the whole source. For E1 the
+    plan is made for CG channel-pair words of 4 bytes, and a chunk of words
+    stages twice as many channels."""
     cg, hp, wp = PLAN_SHAPES[shape]
-    esize, src_dtype, out_dtype = ELEMENTS[element]
+    esize, src_dtype, out_dtype, lanes = ELEMENTS[element]
     p = bs.plan(cg, hp, wp, band, esize)
     assert p.smem_bytes + 16 <= 232448                   # mbarriers: 16
     assert p.smem_bytes == (2 if p.nchunks > 1 else 1) * p.chunk * \
@@ -184,11 +189,13 @@ def test_plan_fits_and_blocks_equal_plain(band, element, shape):
     assert p.slot_bytes >= (p.ty + band - 1) * wp * esize + 14
     assert p.nchunks == -(-cg // p.chunk) and 1 <= p.ty <= hp
 
-    src, py, px, mask, dy_lo = _inputs(band, seed=5, ng=2, k=2, cg=cg,
-                                       hp=hp, wp=wp)
+    src, py, px, mask, dy_lo = _inputs(band, seed=5, ng=2, k=2,
+                                       cg=lanes * cg, hp=hp, wp=wp)
     src = torch.from_numpy(src).to(src_dtype)
     if element == "packed":                              # E6's words
         src = bs.unpack_xpairs(bs.pack_xpairs(src))
+    if element == "cpair":                               # E1's words
+        src = bs.unpack_cpairs(bs.pack_cpairs(src))
     py, px, mask = map(torch.from_numpy, (py, px, mask))
     want = bs.band_sample_plain(src, py, px, mask, dy_lo, out_dtype)
     got = torch.full_like(want, float("nan"))
@@ -201,13 +208,14 @@ def test_plan_fits_and_blocks_equal_plain(band, element, shape):
         assert ((admitted >= y0) & (admitted < y0 + rows)).all()
         for c0 in range(0, cg, p.chunk):               # the kernel's chunks
             cn = min(p.chunk, cg - c0)
-            slab = torch.full((2, cn, tyn + band, wp), float("nan"),
+            ch = slice(lanes * c0, lanes * (c0 + cn))
+            slab = torch.full((2, lanes * cn, tyn + band, wp), float("nan"),
                               dtype=src_dtype)
-            slab[:, :, :rows] = src[:, c0:c0 + cn, y0:y0 + rows]
+            slab[:, :, :rows] = src[:, ch, y0:y0 + rows]
             # the tile's rows [y0, y0 + tyn) as rows [0, tyn) of the slab:
             # dy_lo + y0 keeps every band index r = floor(py) + s - (y +
             # dy_lo) exact
-            got[:, :, c0:c0 + cn, y0:y0 + tyn] = bs.band_sample_plain(
+            got[:, :, ch, y0:y0 + tyn] = bs.band_sample_plain(
                 slab, *(t[:, :, y0:y0 + tyn] for t in (py, px, mask)),
                 dy_lo + y0, out_dtype)
     assert torch.equal(got, want)

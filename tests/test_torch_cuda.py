@@ -176,8 +176,9 @@ def _check_k3(q, k, v, bias, b, heads, dtype):
 
 
 # (nq, no, t, s, padded frames): ragged tiles; a panel that ends one key
-# into a key tile (no + t*s = 194: 64-key tiles in float32; 129: one past a
-# 128-key tile in bf16); one query, and one past a query block (128 rows);
+# into a key tile (no + t*s = 194: two keys into a 32-key float32 tile;
+# 129: one past a 128-key bf16 tile and a 32-key float32 one); one query,
+# and one past a query block (128 rows);
 # every frame padded but the last (own keys 45 per frame), so the first
 # key tiles of each panel are all padding
 _K3_CASES = {"ragged": (70, 70, 3, 37, "last"),
@@ -222,6 +223,25 @@ def test_focal_attention_bf16_one_valid_frame(gen, b, s):
                       keep.repeat_interleave(s, 1)], 1)
     bias = torch.where(keep, bias, torch.full_like(bias, -1e9))
     _check_k3(q, k, v, bias, b, heads, torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [125, 149, 153])
+def test_focal_attention_f32_serving_geometry(gen, s):
+    """The float32 kernel (3xTF32 on wgmma, 128-query blocks, 32-key tiles)
+    at the three serving key counts per frame (base, HQ 864x480,
+    1296x720) and T=17: 765 queries over 6 blocks, 765 + 17 S keys, the
+    last tile ragged; the second batch element's last 3 frames padded.
+    Within 1e-5 of the plain version."""
+    t, nwin, heads, b = 17, 2, 4, 2
+    nq = t * 45
+    q, k, v, bias = _k3_inputs(gen, torch.float32, b, heads, nwin, nq, nq,
+                               t, s)
+    keep = torch.ones((b * nwin, t), dtype=torch.bool, device="cuda")
+    keep[nwin:, -3:] = False
+    keep = torch.cat([keep.repeat_interleave(45, 1),
+                      keep.repeat_interleave(s, 1)], 1)
+    bias = torch.where(keep, bias, torch.full_like(bias, -1e9))
+    _check_k3(q, k, v, bias, b, heads, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -434,8 +454,10 @@ def test_packed_band_samplers_bit_equal_base(gen, geom):
                                       out_dtype=torch.bfloat16), base)
     assert torch.equal(bs.band_sample_xpair(bs.pack_xpairs(src), *rest),
                        base)
+    before = bs.LAUNCHES["band_sample_cpair"]
     assert torch.equal(bs.band_sample_cpair(bs.pack_cpairs(src), *rest),
                        base)
+    assert bs.LAUNCHES["band_sample_cpair"] == before + 1
     # the packers agree with their CPU versions
     assert torch.equal(bs.pack_xpairs(src).cpu(), bs.pack_xpairs(src.cpu()))
     assert torch.equal(bs.pack_cpairs(src).cpu(), bs.pack_cpairs(src.cpu()))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The staged banded sampler's plans (E5/E6) timed against each other on
-one card, and a model of its shared-memory bank conflicts.
+"""The staged banded sampler's plans (E5/E6/E1) timed against each other
+on one card, and a model of its shared-memory bank conflicts.
 
     python3 tools/band_plan_sweep.py [--iters N]
     python3 tools/band_plan_sweep.py --bank-model
@@ -8,12 +8,15 @@ one card, and a model of its shared-memory bank conflicts.
 The first form builds the kernels, takes the experiments' inputs
 (exp_dcn_inner_r04 at band 24, exp_dcn_pack at band 48) and, for each
 variant (E5 `bf16`, E5 `base`: a float32 source with a bfloat16 output,
-E6 `xpair`), each plan (8, 4 or 2 output rows a block, each equal channel
-chunk that fits in 227 KB) and each thread width (4 or 8 consecutive x),
+E6 `xpair`, E1 `cpair`: channel-pair words, planned as CG/2 channels of 4
+bytes), each plan (8, 4 or 2 output rows a block, each equal channel
+chunk that fits in 227 KB) and each thread width (4 or 8 consecutive x;
+4 for channel pairs),
 launches the kernel's C entry point directly, times N back-to-back calls
 between two CUDA events (the kernels take ~0.6 ms, their host launch
 ~0.03) and checks the output bit-equal to the wrapper's. One JSON line
-each; `picked` marks the plan band_sampler.plan chooses.
+each; `picked` marks the plan band_sampler.plan chooses at the thread
+width the wrapper takes.
 
 The second form runs on the CPU: the mean bank wavefronts of one warp's
 16-bit corner load from a staged bfloat16 slab at the band-24 inputs'
@@ -67,13 +70,16 @@ def sweep(iters):
     def launch(variant, src, py, px, mask, dy_lo, ty, chunk, vx):
         ng, cg, hs, wp = src.shape
         k, hp = py.shape[1], py.shape[2]
-        out = torch.empty((ng, k, cg, hp, wp), dtype=torch.bfloat16,
+        lanes = 2 if variant == "cpair" else 1
+        out = torch.empty((ng, k, lanes * cg, hp, wp), dtype=torch.bfloat16,
                           device=src.device)
         args = (src.data_ptr(), py.data_ptr(), px.data_ptr(),
                 mask.data_ptr(), out.data_ptr(), ng, k, cg, hp, wp, hs - hp,
                 dy_lo, ty, chunk, vx, *build.stream_args(src))
         if variant == "xpair":
             err = lib.e2fgvi_band_sample_xpair(*args)
+        elif variant == "cpair":
+            err = lib.e2fgvi_band_sample_cpair(*args)
         else:
             err = lib.e2fgvi_band_sample(bs._DTYPES[src.dtype], 1, *args)
         build.check(err, variant)
@@ -99,23 +105,26 @@ def sweep(iters):
             band = src.shape[2] - hp
             want = bs.band_sample(src, *pos)
             for variant, vsrc in (("bf16", src), ("base", src.float()),
-                                  ("xpair", bs.pack_xpairs(src))):
-                es = vsrc.element_size()
-                picked = bs.plan(cg, hp, wp, band, es, pos[0].shape[1])
-                chunks = sorted({-(-cg // n) for n in range(1, cg + 1)})
+                                  ("xpair", bs.pack_xpairs(src)),
+                                  ("cpair", bs.pack_cpairs(src))):
+                es, vcg = vsrc.element_size(), vsrc.shape[1]
+                picked = bs.plan(vcg, hp, wp, band, es, pos[0].shape[1])
+                lanes = 2 if variant == "cpair" else 1
+                wvx = bs._vx(wp, es, lanes, *pos[:3])
+                chunks = sorted({-(-vcg // n) for n in range(1, vcg + 1)})
                 for ty in (8, 4, 2):
                     for chunk in chunks:
-                        p = bs.make_plan(ty, chunk, cg, wp, band, es)
+                        p = bs.make_plan(ty, chunk, vcg, wp, band, es)
                         if p.smem_bytes > bs.SMEM_MAX:
                             continue
-                        for vx in (4, 8):
+                        for vx in (4, 8) if lanes == 1 else (4,):
                             fn = lambda: launch(variant, vsrc, *pos, ty,  # noqa: E731
                                                 chunk, vx)
                             print(json.dumps({
                                 "shape": shape, "variant": variant,
                                 "ty": ty, "chunk": chunk, "vx": vx,
                                 "smem": p.smem_bytes,
-                                "picked": p == picked,
+                                "picked": p == picked and vx == wvx,
                                 "ms": device_ms(fn),
                                 "equal": bool(torch.equal(fn(), want))}),
                                 flush=True)

@@ -22,7 +22,9 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
   kernel alone in a tree whose bfloat16 K1 still writes an im2col matrix;
   K2 on the pair of 128-channel feature warps (2B
   maps) beside F.grid_sample, and on the 2-channel flow composition
-  (float32); K3 at base B=14;
+  (float32); K3 at base B=14 in both dtypes, and the float32 K3 at
+  864x480 (chip_smoke.k3_inputs on 120x216 maps: 64 windows, S=149) at
+  B=2 and B=14, each with its bound at the 3xTF32 rate;
 - `gather` (default), on experiments.exp_gather.make_inputs (9 taps of a
   60x108 map, 128 lanes, 16 groups): E3 row_gather in float32 and
   bfloat16 beside torch.gather (the index widened to int64 beforehand,
@@ -65,11 +67,12 @@ sync, the wrapper's host time included). `--parts` picks what it runs:
 
 Every part also prints the SASS opcode histogram of its kernels
 (cuobjdump): load and store opcodes in full, the rest as a digest. The
-outputs of K1 and K2 at base and of E3 and E4 go to <dir>/<tag>.pt. The
-second form says which saved outputs are bit-equal between two trees, and
-whether the float32 K1's, which need not be (its 3xTF32 contraction sums
-in another order than a float32 GEMM), are within
-chip_smoke.F32_MAX_ABS's bar for K1 against its plain version. The third
+outputs of K1, K2 and the float32 K3 at base and of E3 and E4 go to
+<dir>/<tag>.pt. The second form says which saved outputs are bit-equal
+between two trees, and whether the float32 K1's and K3's, which need not
+be (their 3xTF32 products sum in other orders than float32 does), are
+within chip_smoke.F32_MAX_ABS's bar for the kernel against its plain
+version. The third
 form reads the first form's output, saved as <tree>_<pair>.jsonl a
 run, and prints each tree's medians, minima and maxima and, pair by pair, how often each ms
 was below its library call's (same run) and below the other tree's (same
@@ -91,6 +94,7 @@ SHAPES = {"base": (14, 60, 108), "864x480": (14, 120, 216)}
 ACCURACY_SHAPES = {**SHAPES, "1296x720": (14, 180, 324)}
 SASS = {"deform": ("deform_conv_tf32_kernel", "flow_warp_kernel",
                    "deform_conv_wgmma_kernel", "focal_attention_wgmma_kernel",
+                   "focal_attention_3xtf32_kernel",
                    "focal_attention_tf32_kernel"),
         "gather": ("row_gather_kernel", "bilinear4", "group_major_kernel"),
         "accuracy": ("deform_conv_tf32_kernel",), "serve_f32": (),
@@ -107,7 +111,10 @@ GATHER_ITERS = 50    # cuda_ms calls a median for the ~0.05 ms gathers
 LIBRARY_KEYS = (("ms", "library_ms"), ("k2_ms", "grid_sample_ms"))
 # saved outputs compared within a max |delta| instead of bit for bit, by
 # the chip_smoke.F32_MAX_ABS entry of their kernel
-TOLERANCE_OF = {"k1_float32": "deform_conv"}
+TOLERANCE_OF = {"k1_float32": "deform_conv",
+                "k3_float32": "focal_attention"}
+# the float32 K3's shapes beside base: (B, map h, map w)
+K3_F32_SHAPES = {"864x480 b2": (2, 120, 216), "864x480": (14, 120, 216)}
 
 
 def chip_smoke():
@@ -203,15 +210,25 @@ def run_deform(cs, tag, dev, saved):
             print(json.dumps(res), flush=True)
             del x, head, xf
             torch.cuda.empty_cache()
-    make_inputs, _, _ = cs.k3_inputs(dev, *SHAPES["base"])
-    res = {"tag": tag, "shape": "base", "kernel": "focal_attention"}
-    for dt in ("bfloat16", "float32"):
-        args = make_inputs(getattr(torch, dt))
-        with torch.inference_mode():
-            res["ms" if dt == "bfloat16" else "ms_f32"] = cuda_ms(
-                lambda: fa.focal_attention(*args))
-        del args
-    print(json.dumps(res), flush=True)
+    for label, shape in (("base", SHAPES["base"]), *K3_F32_SHAPES.items()):
+        make_inputs, _, _ = cs.k3_inputs(dev, *shape)
+        res = {"tag": tag, "shape": label, "kernel": "focal_attention"}
+        for dt in ("bfloat16", "float32") if label == "base" else (
+                "float32",):
+            args = make_inputs(getattr(torch, dt))
+            with torch.inference_mode():
+                sfx = "" if dt == "bfloat16" else "_f32"
+                res["ms" + sfx] = cuda_ms(lambda: fa.focal_attention(*args))
+                if dt == "float32":
+                    out = fa.focal_attention(*args)
+                    res["bound_ms_f32"] = cs.k3_bound(args, out, True)[0]
+                    if label == "base":
+                        saved["k3_float32"] = out.cpu()
+                    del out
+            del args
+        print(json.dumps(res), flush=True)
+        del make_inputs
+        torch.cuda.empty_cache()
 
 
 def run_gather(cs, tag, dev, saved):
@@ -552,7 +569,8 @@ def summarize(paths):
                         v[k] < v[f"{name}: {lib}"] for v in mine.values()
                         if k in v and f"{name}: {lib}" in v)
             # ms (a stage's too): lower is better; frames/s: higher
-            sign = (1 if key.endswith("ms") or key.startswith("stages_ms")
+            sign = (1 if key.endswith(("ms", "ms_f32"))
+                    or key.startswith("stages_ms")
                     else -1 if key == "fps" else 0)
             for other in trees if sign and "split" not in key else ():
                 if other != tree:
