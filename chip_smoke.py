@@ -4,6 +4,9 @@ on one H100.
 
     python3 chip_smoke.py
 
+(`chip_smoke.py --tp-worker <rank> <port> <dir> <batch>` is one model rank
+of phase 9b, started by the script itself.)
+
 Phases, one line each (any failed check raises and exits nonzero):
   1. device   CUDA with compute capability 9.0; nvidia-smi name, power limit
   2. build    nvcc builds the kernels in e2fgvi_tpu_torch/csrc; the SASS
@@ -29,7 +32,9 @@ Phases, one line each (any failed check raises and exits nonzero):
               TF32 pass misses (K1's one-pass error is recorded beside
               it); both float32 kernels' bound at the 3xTF32 rate, their
               FP32-rate bound beside it;
-              K3 also at B=1 with only the first frame valid.
+              K3 also at B=1 with only the first frame valid, and at
+              the 2 and 1 heads a rank runs at model_parallel 2 and 4
+              (both dtypes, the same bars).
               Beside each kernel's ms: its plain version's, the one
               PyTorch call that computes the same function where there is
               one (library_ms: F.grid_sample for K2,
@@ -86,6 +91,19 @@ Phases, one line each (any failed check raises and exits nonzero):
               Adam steps; one step at b=1 on the card against the CPU's
               plain path (losses and every gradient); one step of
               configs/train_e2fgvi_hq.json at batch 2
+  9b. train tp  the same Trainer at model_parallel 2 (data 1 x model 2):
+              its two model ranks as two processes of this script on the
+              one card over gloo (NCCL refuses two ranks on one device),
+              this process's cached memory released first; TP_STEPS steps
+              on phase 9's data and seed against phase 9's first steps
+              (both at batch 4 where 8 does not fit two ranks): losses
+              within rtol 1e-4, the ranks' replicated weights bit-equal and
+              their losses within rtol 1e-5 of each other, the generator
+              and discriminator at the last step (the model_parallel 2
+              checkpoint's full tensors) within TP_PARAM_BAR lr; per rank
+              K3's calls by heads (2 each), K1-K3 launches, s/step (CUDA
+              events) and peak GiB. Two ranks sharing one card say nothing
+              of tensor parallelism's speed on two cards
 Each phase prints its seconds. The second-to-last line is the kernels JSON;
 the last line is {"ok": true, "device": {...}}. Weights are the goldens'
 deterministic random weights and a seeded I3D; nothing is downloaded, and
@@ -94,6 +112,7 @@ JAX is never imported.
 
 import ast
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -359,11 +378,16 @@ def _randn_fn(dev, seed=0):
 def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     """K1, K2 and K3 against their plain versions at serving shapes, K1 in
     float32 also against one TF32 pass; K3 also on one window batch whose
-    padding frames leave only the first frame valid."""
+    padding frames leave only the first frame valid, and at the 2 and 1
+    heads a rank runs at model_parallel 2 and 4 (phase 9b), in both dtypes
+    at the same bars."""
     res = check_k1k2(dev, b, h, w, timed, one_pass=True)
     res["focal_attention"], _ = check_k3(dev, b, h, w, t, timed)
     first, _ = check_k3(dev, 1, h, w, t, timed=False, pad="first")
     res["focal_attention"]["first_frame_only"] = first
+    res["focal_attention"]["heads"] = {
+        str(heads): check_k3(dev, b, h, w, t, timed=False, heads=heads)[0]
+        for heads in (2, 1)}
     return res
 
 
@@ -513,17 +537,18 @@ def k1_gemm_and_peak(k1_inputs, dtypes, m):
     return res
 
 
-def k3_inputs(dev, b, h, w, t=17, pad="serving"):
+def k3_inputs(dev, b, h, w, t=17, pad="serving", heads=4):
     """K3's inputs for b windows of T=t frames on the token grid of an
     h x w quarter-res map, with the real deduplicated key table and padding
     frames: pad "serving" pads frames 6-10, 9-10 and 15-16 of the first
     three windows, "first" every frame but the first. Each window's key
     panel is its own keys, then its gathered keys frame by frame (the order
-    models/tfocal.py builds). Returns (make_inputs(dtype), nwin, S)."""
+    models/tfocal.py builds). heads: 4, or the 4/m a rank of
+    model_parallel m runs. Returns (make_inputs(dtype), nwin, S)."""
     import torch
     from e2fgvi_tpu_torch.models import tfocal
     randn = _randn_fn(dev)
-    heads, hd, wh, ww = 4, 128, 5, 9
+    hd, wh, ww = 128, 5, 9
     fh, fw = tfocal.token_grid((h, w))
     _, bias_rows, s = tfocal._window_tables(
         fh, fw, wh, ww, 2, 4, -(-fh // wh), -(-fw // ww), t,
@@ -593,12 +618,13 @@ def k3_chunks(args):
             for i in range(b)]
 
 
-def check_k3(dev, b, h, w, t=17, timed=True, pad="serving", chunked=False):
+def check_k3(dev, b, h, w, t=17, timed=True, pad="serving", chunked=False,
+             heads=4):
     """K3 against its plain version (see k3_inputs), with its bound and
     SDPA's time; chunked runs the plain version one batch element at a
     time. Returns compare()'s result and the geometry (nwin, S)."""
     from e2fgvi_tpu_torch.kernels import focal_attention as fa
-    make_inputs, nwin, s = k3_inputs(dev, b, h, w, t, pad)
+    make_inputs, nwin, s = k3_inputs(dev, b, h, w, t, pad, heads)
     return compare("focal_attention", fa.focal_attention,
                    fa.focal_attention_plain, make_inputs, timed,
                    bound_fn=k3_bound, library_fn=k3_library,
@@ -1193,11 +1219,248 @@ def run_train(dev, tmp):
         res["oom_batch8"] = str(e)
         torch.cuda.empty_cache()
         res["base"] = train_base(dev, root, os.path.join(tmp, "b4"), 4)
+    res["base"]["save_dir"] = os.path.join(
+        tmp, f"b{res['base']['batch']}")
     torch.cuda.empty_cache()
     res["card_vs_cpu"] = train_card_vs_cpu(dev, root)
     torch.cuda.empty_cache()
     res["hq"] = train_hq(dev, root)
     torch.cuda.empty_cache()
+    return res
+
+
+# phase 9b, tensor parallelism: the base config at model_parallel 2, its
+# two model ranks as two processes on the one card over gloo (NCCL refuses
+# two ranks on one device), against phase 9's first TP_STEPS steps
+TP_STEPS, TP_MODEL = 2, 2
+# Adam with beta1 = 0 moves a parameter by at most lr at step 1 and
+# lr sqrt((1 - 0.99^2) / 0.01) = 1.41 lr at step 2, so two runs whose
+# gradients differ in rounding (a near-zero gradient's sign) can part by
+# twice their sum after two steps: phase 9's two-Adam-step bar from step 0
+TP_PARAM_BAR = 2 * (1 + ((1 - 0.99 ** 2) / 0.01) ** 0.5)
+
+
+def tp_worker(rank, port, tmp, batch):
+    """One model rank of phase 9b (chip_smoke.py --tp-worker <rank> <port>
+    <tmp> <batch>): the Trainer at model_parallel 2 on phase 9's synthetic
+    set under <tmp>, TP_STEPS steps saving at the last; writes
+    <tmp>/tp_<rank>.json: losses, s/step (CUDA events), this process's
+    peak GiB, K1-K3 launches, the heads K3 ran at (calls by heads), or
+    {"oom": ...} where the card ran out of memory."""
+    import collections
+    import hashlib
+    os.environ.update(E2FGVI_NUM_PROCESSES=str(TP_MODEL),
+                      E2FGVI_PROCESS_ID=str(rank),
+                      E2FGVI_COORDINATOR=f"127.0.0.1:{port}")
+    import torch
+    sys.path.insert(0, ROOT)
+    from e2fgvi_tpu_torch.models import tfocal
+    from e2fgvi_tpu_torch.parallel.tensor import shard_dim
+    from e2fgvi_tpu_torch.train.trainer import Trainer
+    from e2fgvi_tpu_torch.utils import env
+    env.setup()
+    out = os.path.join(tmp, f"tp_{rank}.json")
+    heads = collections.Counter()
+    attention = tfocal.focal_attention
+
+    def counted(q, k, v, bias, b, h):
+        heads[h] += 1
+        return attention(q, k, v, bias, b, h)
+
+    tfocal.focal_attention = counted
+    cfg = train_config("train_e2fgvi.json", tmp, os.path.join(tmp, "tp"),
+                       batch_size=batch, save_freq=TP_STEPS, log_freq=1,
+                       model_parallel=TP_MODEL)
+    try:
+        tr = Trainer(cfg, device="cuda")
+        starts, ends, logs = [torch.cuda.Event(enable_timing=True)], [], {}
+
+        def on_step(it, lg):
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            logs[it] = {k: float(v) for k, v in lg.items()}
+            starts.append(torch.cuda.Event(enable_timing=True))
+            starts[-1].record()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        starts[0].record()
+        tr.train(max_steps=TP_STEPS, on_step=on_step)
+        torch.cuda.synchronize()
+        digest = hashlib.sha256()
+        for name, p in tr.state.gen.named_parameters():
+            if shard_dim(name) is None:
+                digest.update(p.detach().cpu().numpy().tobytes())
+        for p in tr.state.dis.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        res = {"rank": rank, "grid": [tr.grid.data, tr.grid.model],
+               "replicated_sha256": digest.hexdigest(),
+               "losses": logs,
+               "step_s": [a.elapsed_time(b) / 1e3
+                          for a, b in zip(starts, ends)],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launch_counts(),
+               "k3_heads": dict(heads)}
+        tr.close()
+    except RuntimeError as e:       # OutOfMemoryError, or cuBLAS's
+        if "out of memory" not in str(e) and "ALLOC_FAILED" not in str(e):
+            raise
+        res = {"oom": str(e)}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def release_cuda_memory():
+    """Return this process's cached device memory to the card: the cached
+    blocks, and cuBLAS's workspaces, which live in the caching allocator and
+    keep the whole segment around them (after phase 9 one 64 MiB workspace
+    held a 27.2 GiB segment)."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**30
+
+
+def run_tp_ranks(tmp, batch, timeout=600):
+    """The TP_MODEL ranks of phase 9b as processes of this script, over
+    gloo; stops them all when one fails or runs out of memory. Returns
+    their results (tp_worker's), or None where one ran out of memory."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, E2FGVI_DIST_BACKEND="gloo")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    for r in range(TP_MODEL):
+        path = os.path.join(tmp, f"tp_{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-worker", str(r), str(port), tmp,
+                               str(batch)], env=env)
+             for r in range(TP_MODEL)]
+    results = [None] * TP_MODEL
+    deadline = time.time() + timeout
+    try:
+        while any(r is None for r in results):
+            for r, p in enumerate(procs):
+                if results[r] is None and p.poll() is not None:
+                    if p.returncode:
+                        raise AssertionError(f"tp rank {r} exited with "
+                                             f"{p.returncode}")
+                    with open(os.path.join(tmp, f"tp_{r}.json")) as f:
+                        results[r] = json.load(f)
+                    if "oom" in results[r]:
+                        log(f"train tp: rank {r} out of memory at batch "
+                            f"{batch}: {results[r]['oom']}")
+                        return None
+            if time.time() > deadline:
+                raise AssertionError(f"tp ranks still running after "
+                                     f"{timeout} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return results
+
+
+def train_tp(dev, tmp, base):
+    """Phase 9b: the base config at model_parallel 2 (data 1 x model 2)
+    for TP_STEPS steps, both ranks on the card, against the same steps at
+    model_parallel 1 (phase 9's, or a run at batch 4 here where batch 8
+    does not fit two ranks): the same data and seed, so losses within rtol
+    1e-4, and the generator and discriminator at the last step within
+    TP_PARAM_BAR lr (the m = 2 checkpoint holds full tensors). Each rank
+    runs K3 at 2 heads: its calls by heads, launches, s/step and peak GiB
+    per rank."""
+    import torch
+    from e2fgvi_tpu_torch.train.trainer import Trainer
+    batch, ref_dir, ref_logs = base["batch"], base["save_dir"], base["losses"]
+    res = {"batch": batch, "main_reserved_gib": release_cuda_memory()}
+    ranks = run_tp_ranks(tmp, batch)
+    if ranks is None and batch == 8:
+        res["oom_batch8"] = True
+        batch = res["batch"] = 4
+        ranks = run_tp_ranks(tmp, batch)
+        # model_parallel 1 at batch 4: phase 9's steps were at batch 8
+        ref_dir = os.path.join(tmp, "ref_b4")
+        cfg = train_config("train_e2fgvi.json", tmp, ref_dir,
+                           batch_size=4, save_freq=TP_STEPS)
+        tr = Trainer(cfg, device=dev)
+        ref_logs = {}
+        tr.train(max_steps=TP_STEPS, on_step=lambda it, lg: ref_logs.update(
+            {it: {k: float(v) for k, v in lg.items()}}))
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+    if ranks is None:
+        raise AssertionError(f"train tp: out of memory at batch {batch}")
+    for r in ranks:
+        for it, lg in r["losses"].items():
+            finite_logs(lg, f"train tp rank {r['rank']} step {it}")
+    # the replicated weights stay equal on the ranks (their gradients are
+    # averaged over the model ranks); the ranks' forwards of them may round
+    # apart (cuDNN picks its algorithms by the memory free at the call), so
+    # their losses are held to each other within rtol 1e-5
+    if len({r["replicated_sha256"] for r in ranks}) != 1:
+        raise AssertionError("the model ranks' replicated weights differ")
+    ranks_rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                    for it, want in ranks[0]["losses"].items()
+                    for got in (ranks[1]["losses"][it],) for k in want)
+    if not ranks_rel <= 1e-5:
+        raise AssertionError(f"the model ranks' losses differ by "
+                             f"{ranks_rel}: {[r['losses'] for r in ranks]}")
+    rel = 0.0
+    for it in range(1, TP_STEPS + 1):
+        got, want = ranks[0]["losses"][str(it)], ref_logs[it]
+        if set(got) != set(want):
+            raise AssertionError(f"tp step {it}: {got} vs {want}")
+        rel = max(rel, *(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+                         for k in want))
+    if not rel <= 1e-4:
+        raise AssertionError(f"tp losses off by {rel} (rtol 1e-4): "
+                             f"{ranks[0]['losses']} vs {ref_logs}")
+    lr = float(train_config("train_e2fgvi.json", tmp, None)["trainer"]["lr"])
+    diff, above, total = 0.0, 0, 0
+    for name in ("gen.pth", "dis.pth"):
+        got = torch.load(os.path.join(tmp, "tp", str(TP_STEPS), name),
+                         map_location="cpu", weights_only=True)
+        want = torch.load(os.path.join(ref_dir, str(TP_STEPS), name),
+                          map_location="cpu", weights_only=True)
+        if {k: v.shape for k, v in got.items()} != {
+                k: v.shape for k, v in want.items()}:
+            raise AssertionError(f"tp {name}: not the full tensors")
+        for k, v in want.items():
+            if v.is_floating_point() and v.numel():
+                d = (got[k] - v).abs()
+                diff = max(diff, float(d.max()))
+                above += int((d > 0.1 * lr).sum())
+                total += v.numel()
+    if not diff <= TP_PARAM_BAR * lr:
+        raise AssertionError(f"tp parameters off by {diff} > "
+                             f"{TP_PARAM_BAR} lr")
+    for r in ranks:
+        if set(r["k3_heads"]) != {str(4 // TP_MODEL)}:
+            raise AssertionError(f"rank {r['rank']} ran K3 at heads "
+                                 f"{r['k3_heads']}")
+        if not all(v > 0 for v in r["launches"].values()):
+            raise AssertionError(f"rank {r['rank']} missed a kernel: "
+                                 f"{r['launches']}")
+    res.update(losses_max_rel=rel, ranks_losses_max_rel=ranks_rel,
+               params_max_abs=diff,
+               params_max_abs_over_lr=diff / lr,
+               params_above_lr_tenth=f"{above}/{total}",
+               ranks=[{k: r[k] for k in ("rank", "grid", "step_s",
+                                         "peak_gib", "launches", "k3_heads")}
+                      for r in ranks])
     return res
 
 
@@ -1813,18 +2076,29 @@ def main():
     log(f"evaluate: {json.dumps(eval_res)}, launches {json.dumps(vcounts)}")
     t0 = phase_end("evaluate", t0)
 
-    # 9. train: the Trainer on the base config, resume, card vs CPU, HQ
+    # 9. train: the Trainer on the base config, resume, card vs CPU, HQ;
+    # 9b. train tp: model_parallel 2, two ranks on the card, against
+    # phase 9's steps (its checkpoint and the synthetic set, in tmp)
     with tempfile.TemporaryDirectory() as tmp:
         tres = run_train(dev, tmp)
-    for name, r in tres.items():
-        log(f"train {name}: " + json.dumps(r))
-    base = tres["base"]
-    log(f"train base batch {base['batch']}: s/step "
-        + ", ".join(f"{x:.3f}" for x in base["step_s"])
-        + f"; peak {base['peak_gib']:.2f} GiB; launches forward/step "
-        f"{json.dumps(base['launches_forward_per_step'])}, remat/step "
-        f"{json.dumps(base['launches_remat_per_step'])}")
-    t0 = phase_end("train", t0)
+        for name, r in tres.items():
+            log(f"train {name}: " + json.dumps(r))
+        base = tres["base"]
+        log(f"train base batch {base['batch']}: s/step "
+            + ", ".join(f"{x:.3f}" for x in base["step_s"])
+            + f"; peak {base['peak_gib']:.2f} GiB; launches forward/step "
+            f"{json.dumps(base['launches_forward_per_step'])}, remat/step "
+            f"{json.dumps(base['launches_remat_per_step'])}")
+        t0 = phase_end("train", t0)
+        tp = train_tp(dev, tmp, base)
+    log("train tp: " + json.dumps(tp))
+    for r in tp["ranks"]:
+        log(f"train tp rank {r['rank']} batch {tp['batch']}: s/step "
+            + ", ".join(f"{x:.3f}" for x in r["step_s"])
+            + f"; peak {r['peak_gib']:.2f} GiB; launches "
+            f"{json.dumps(r['launches'])}; K3 calls by heads "
+            f"{json.dumps(r['k3_heads'])}")
+    t0 = phase_end("train tp", t0)
 
     # 10. token maps: the conv forms of soft comp and F3N against their
     # literal chains; where the transformer's and a training step's device
@@ -1852,7 +2126,7 @@ def main():
     e2_keys = ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
                "k3_layer_ms", "parity")
     extra = ("ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
-             "library_ms_f32", "bf16_rel_err", *k1_keys, *e2_keys)
+             "library_ms_f32", "bf16_rel_err", "heads", *k1_keys, *e2_keys)
     hq_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_f32",
                "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
                "library_ms_f32",
@@ -1862,6 +2136,8 @@ def main():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": counts[name],
                  "launches_train": base["launches"].get(name, 0),
+                 "launches_train_tp_per_rank": [
+                     r["launches"].get(name, 0) for r in tp["ranks"]],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"],
@@ -1880,4 +2156,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  int(sys.argv[5]))
+    else:
+        main()

@@ -9,8 +9,9 @@ masks.py), in numpy and PIL:
   half; the same draws from the same seed as the JAX package's;
 - preprocessing (masks.py:122-152): the reference resizes masks nearest,
   binarizes them at > 0 and dilates them 4 times with a 3x3 cross
-  (test.py:57-70, core/dataset.py:120-128). The JAX package's optional C++
-  dilation is not carried over.
+  (test.py:57-70, core/dataset.py:120-128), dilating by the native op
+  (data/native.py, the port's copy of the JAX package's C++ one);
+  dilate_cross here is its plain numpy version.
 
 Outputs are uint8 masks (1 or 255 = hole).
 """
@@ -19,6 +20,8 @@ import random
 
 import numpy as np
 from PIL import Image, ImageDraw
+
+from e2fgvi_tpu_torch.data import native
 
 
 def _bezier_points(p0, p1, p2, p3, n=24):
@@ -122,7 +125,8 @@ def create_random_shape_with_random_motion(video_length, image_height=240,
 
 
 def dilate_cross(mask: np.ndarray, iterations: int = 4) -> np.ndarray:
-    """Binary dilation with the 3x3 cross structuring element.
+    """Binary dilation with the 3x3 cross structuring element, in numpy:
+    the plain version of native.dilate_cross.
 
     Matches cv2.dilate(m, cv2.getStructuringElement(MORPH_CROSS,(3,3)),
     iterations=N) on {0,1} masks (reference core/dataset.py:124-128)."""
@@ -143,8 +147,10 @@ def dilate_cross(mask: np.ndarray, iterations: int = 4) -> np.ndarray:
 def binarize_and_dilate(mask_img: Image.Image, size=None,
                         iterations: int = 4) -> np.ndarray:
     """Reference mask preprocessing: nearest-resize, >0 binarize, dilate
-    (test.py:57-70 / core/dataset.py:120-128). Returns uint8 {0,1} HxW."""
+    (test.py:57-70 / core/dataset.py:120-128) by the native op
+    (data/native.py), as the JAX package does where it is built. Returns
+    uint8 {0,1} HxW."""
     if size is not None:
         mask_img = mask_img.resize(size, Image.NEAREST)
     m = (np.array(mask_img.convert("L")) > 0).astype(np.uint8)
-    return dilate_cross(m, iterations)
+    return native.dilate_cross(m, iterations)

@@ -1,4 +1,5 @@
-"""Frame quality metrics on the host: PSNR and SSIM.
+"""Frame quality metrics on the host: PSNR, SSIM and the flows' end-point
+error.
 
 The port's own copy of the JAX package's (e2fgvi_tpu/eval/metrics.py),
 with the reference core/metrics.py semantics:
@@ -12,10 +13,19 @@ with the reference core/metrics.py semantics:
   cropped to the interior) over all 5 statistics and all channels in one
   pass.
 
+- End-point error (calculate_epe, metrics.py:12-17): the mean Euclidean
+  distance between two (..., 2) flows.
+
 The Frechet distance for VFID is eval/vfid.py.
 """
 
 import numpy as np
+
+
+def calculate_epe(flow1, flow2):
+    """End-point error between two (..., 2) flow arrays."""
+    return float(np.sqrt(((np.asarray(flow1) - np.asarray(flow2)) ** 2
+                          ).sum(-1)).mean())
 
 
 def calculate_psnr(img1, img2):

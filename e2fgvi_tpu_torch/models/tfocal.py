@@ -26,6 +26,10 @@ contiguous key panel per window (one index_select per k and v) with one
 joined bias row. The softmax over the panel is K3
 (kernels/focal_attention.py).
 
+In training over a ('data', 'model') grid (parallel/tensor.py) each
+block's attention runs on heads/m heads and F3N on 40/m hidden channels
+of the rank's shard, their partial outputs summed over the model ranks.
+
 Static geometry at the base model: a 20x36 token grid, (5, 9) windows,
 (2, 4) expansion, one pooled level of 4x4 window tokens. The HQ model
 takes the grid from the input size (864x480: 40x72 tokens, 64 windows);
@@ -46,6 +50,7 @@ from e2fgvi_tpu_torch.ops.convs import conv2d, gelu, layer_norm, linear
 from e2fgvi_tpu_torch.ops.patches import (fold, fold_bias, fold_counts,
                                           fold_normalized,
                                           grid_and_output_padding, unfold)
+from e2fgvi_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 T2T_KERNEL = (7, 7)
 T2T_STRIDE = (3, 3)
@@ -358,11 +363,20 @@ def window_attention(attn, x, pooled, num_heads, window_size, expand_size,
     x: (B, T, H, W, C) normalized tokens; pooled: (B, nWh, nWw, T, C)
     pooled window tokens; frame_valid: optional (B, T) bool, False on
     padding frames, whose keys are masked out. Returns (B*nWin,
-    T*wh*ww, C)."""
+    T*wh*ww, C).
+
+    With a tensor-parallel grid on `attn` (parallel/tensor.shard_generator)
+    qkv and proj hold this rank's shard: num_heads/m heads of hd = C /
+    num_heads, x and pooled entering qkv through copy_to_model, proj's
+    partial product summed by reduce_from_model before its bias."""
     b, t, h, w, c = x.shape
     wh, ww = window_size
     eh, ew = expand_size
     hd = c // num_heads
+    tp = getattr(attn, "tp", None)
+    if tp is not None:          # this rank's heads of a split qkv
+        x, pooled = copy_to_model(x, tp), copy_to_model(pooled, tp)
+        num_heads //= tp.model
     nwy, nwx = h // wh, w // ww
     nwin = nwy * nwx
     nwh, nww = pooled.shape[1], pooled.shape[2]
@@ -402,7 +416,10 @@ def window_attention(attn, x, pooled, num_heads, window_size, expand_size,
 
     out = focal_attention(qw, panel(k, pq[1]), panel(v, pq[2]),
                           bias.reshape(b * nwin, nk), b, num_heads)
-    return linear(out, attn.proj.weight, attn.proj.bias)
+    if tp is None:
+        return linear(out, attn.proj.weight, attn.proj.bias)
+    out = reduce_from_model(linear(out, attn.proj.weight), tp)
+    return out + attn.proj.bias.to(out.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -417,19 +434,32 @@ def fusion_feed_forward(mlp, x, t, output_size):
     took 32.7 ms against 28.2 at base (238 frame maps) and 37.4 against
     29.9 at 864x480 (68), where in bfloat16 the conv form took 3.8 against
     14.8 and 14.9 against 50.4 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
-    phase 10)."""
-    if x.is_cuda and x.dtype == torch.float32:
-        return _fusion_feed_forward_literal(mlp, x, t, output_size)
-    return _fusion_feed_forward_conv(mlp, x, t, output_size)
+    phase 10).
+
+    With a tensor-parallel grid on `mlp` (parallel/tensor.shard_generator)
+    fc1 and fc2 hold this rank's 40/m channels: x enters through
+    copy_to_model, and fc2's partial product is summed by
+    reduce_from_model before its bias."""
+    tp = getattr(mlp, "tp", None)
+    if tp is not None:
+        x = copy_to_model(x, tp)
+    form = (_fusion_feed_forward_literal
+            if x.is_cuda and x.dtype == torch.float32
+            else _fusion_feed_forward_conv)
+    if tp is None:
+        return form(mlp, x, t, output_size)
+    y = reduce_from_model(form(mlp, x, t, output_size, fc2_bias=False), tp)
+    return y + mlp.conv2[1].bias.to(y.dtype)
 
 
-def _fusion_feed_forward_conv(mlp, x, t, output_size):
+def _fusion_feed_forward_conv(mlp, x, t, output_size, fc2_bias=True):
     """The conv form of F3N (e2fgvi_tpu/models/tfocal.py
     _fusion_feed_forward_conv): fc1 and the fold as one transposed
     convolution to pixels, the division by the overlap counts in float32,
     gelu on the (BT, cc, H, W) map (unfold only gathers, so gelu commutes
     with it), unfold and fc2 as one stride-3 convolution whose OIHW weight
-    is fc2's channel-major weight as it stands."""
+    is fc2's channel-major weight as it stands. fc2_bias=False leaves out
+    fc2's bias."""
     b, n, c = x.shape
     fc1, fc2 = mlp.conv1[0], mlp.conv2[1]
     lh, lw = token_grid(output_size)
@@ -439,14 +469,15 @@ def _fusion_feed_forward_conv(mlp, x, t, output_size):
                       x.device)
     z = gelu((z / cnt).to(z.dtype))
     w2 = fc2.weight.reshape(c, -1, *T2T_KERNEL).to(z.dtype)
-    y = F.conv2d(z, w2, fc2.bias.to(z.dtype), stride=T2T_STRIDE,
-                 padding=T2T_PADDING)
+    y = F.conv2d(z, w2, fc2.bias.to(z.dtype) if fc2_bias else None,
+                 stride=T2T_STRIDE, padding=T2T_PADDING)
     return y.permute(0, 2, 3, 1).reshape(b, n, c)
 
 
-def _fusion_feed_forward_literal(mlp, x, t, output_size):
+def _fusion_feed_forward_literal(mlp, x, t, output_size, fc2_bias=True):
     """F3N as the reference writes it: fc1, overlap-mean fold to pixels,
-    unfold back to patches, gelu, fc2."""
+    unfold back to patches, gelu, fc2 (its bias left out where fc2_bias
+    is False)."""
     b, n, c = x.shape
     fc1, fc2 = mlp.conv1[0], mlp.conv2[1]
     hid = linear(x, fc1.weight, fc1.bias)                  # (B, N, d_ff)
@@ -457,7 +488,7 @@ def _fusion_feed_forward_literal(mlp, x, t, output_size):
     y = fold_normalized(p, output_size, T2T_KERNEL, T2T_STRIDE, T2T_PADDING)
     y = unfold(y, T2T_KERNEL, T2T_STRIDE, T2T_PADDING)      # (BT, d_ff, L)
     y = gelu(y.transpose(1, 2).reshape(b, n, d_ff))
-    return linear(y, fc2.weight, fc2.bias)
+    return linear(y, fc2.weight, fc2.bias if fc2_bias else None)
 
 
 # ---------------------------------------------------------------------------

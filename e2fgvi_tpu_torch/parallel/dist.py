@@ -1,16 +1,18 @@
-"""Data-parallel training across processes: environment discovery,
-torch.distributed init, DistributedDataParallel wrapping.
+"""Training across processes: environment discovery, torch.distributed
+init, DistributedDataParallel wrapping.
 
 Counterpart of e2fgvi_tpu/parallel/mesh.py (the reference's
 train.py:29-35, core/trainer.py:70-81, core/dist.py). World discovery
 (detect_world, coordinator_address) is the JAX package's, copied
 (mesh.py:26-62), with torchrun's WORLD_SIZE / RANK after the E2FGVI_*
 overrides. Processes meet over TCP at the coordinator address: NCCL on the
-card, gloo when the CPU is asked for by name. The generator and the
-discriminator are each wrapped in DistributedDataParallel, data parallel
-only, as the reference trains. The JAX package's tensor parallelism
-(mesh.py:89-118, `trainer.model_parallel`) has no counterpart in the
-reference and is not ported: model_parallel > 1 raises.
+card, gloo when the CPU is asked for by name, or whatever
+E2FGVI_DIST_BACKEND names (gloo for model ranks that share one card, which
+NCCL refuses). The generator and the discriminator are each wrapped in
+DistributedDataParallel over the ranks that hold the same parameters: all
+of them where training is data parallel only, as the reference trains, and
+a model index's data ranks where the JAX package's tensor parallelism
+(`trainer.model_parallel`, parallel/tensor.py) splits the transformer.
 """
 
 import os
@@ -47,14 +49,6 @@ def coordinator_address(default_port=23455):
     return f"{host}:{default_port}"
 
 
-def check_model_parallel(model_parallel: int):
-    if int(model_parallel) > 1:
-        raise NotImplementedError(
-            "model_parallel > 1: the JAX package's tensor parallelism has no "
-            "counterpart in the reference and is not ported; the port trains "
-            "data parallel only")
-
-
 def local_device(device: torch.device, rank: int) -> torch.device:
     """The card of this process: LOCAL_RANK (torchrun) or rank modulo the
     cards on the host; the CPU stays the CPU."""
@@ -69,20 +63,31 @@ def initialize(device: torch.device):
     (a no-op for one). Returns (world size, rank)."""
     size, rank = detect_world()
     if size > 1 and not tdist.is_initialized():
+        backend = os.environ.get("E2FGVI_DIST_BACKEND") or (
+            "nccl" if device.type == "cuda" else "gloo")
         tdist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
+            backend,
             init_method=f"tcp://{coordinator_address()}", world_size=size,
             rank=rank)
     return size, rank
 
 
-def data_parallel(module, device: torch.device):
+def data_parallel(module, device: torch.device, grid=None):
     """module wrapped in DistributedDataParallel where a process group is
-    up, else the module. Buffers are not broadcast: the discriminator's
+    up, else the module. With a tensor-parallel grid (parallel/tensor.py,
+    model > 1) the gradients are averaged over the rank's data-parallel
+    group, the ranks holding the same shard, and a grid of one data rank
+    takes no wrapper. Buffers are not broadcast: the discriminator's
     spectral-norm vectors are replaced each call and are equal on every
     rank (the same weights, the same iteration)."""
     if not (tdist.is_available() and tdist.is_initialized()):
         return module
+    group = None
+    if grid is not None and grid.model > 1:
+        if grid.data == 1:
+            return module
+        group = grid.dp_group
     ids = [device.index] if device.type == "cuda" else None
     return DistributedDataParallel(module, device_ids=ids,
-                                   broadcast_buffers=False)
+                                   broadcast_buffers=False,
+                                   process_group=group)

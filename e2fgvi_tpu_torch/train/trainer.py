@@ -8,13 +8,17 @@ core/trainer.py, train.py):
 
 - The reference JSON schema (configs/train_e2fgvi.json, _hq.json); its
   'seed' is honored: weights and sampling are seeded from it.
-- Data parallel over processes (parallel/dist.py): each process decodes
-  its share of the global batch (batch_size / world size) and
-  DistributedDataParallel averages the gradients. `model_parallel` > 1
-  raises.
+- Data parallel over processes (parallel/dist.py): each data rank
+  decodes its share of the global batch (batch_size / data ranks) and
+  DistributedDataParallel averages the gradients over the data ranks.
+- Tensor parallel over `trainer.model_parallel` = m processes (1, 2 or 4;
+  parallel/tensor.py): world = data x m, the m model ranks of a data index
+  load the same batch, and each runs the transformer on its shard of the
+  split GEMMs. Every rank builds the full seeded generator and keeps its
+  shard, so step 0 is the m = 1 run's.
 - Checkpoints every save_freq iterations under save_dir/<it>/ with a
-  `latest` pointer (utils/checkpoints.py); a new Trainer on the same
-  save_dir resumes from the latest.
+  `latest` pointer (utils/checkpoints.py), full tensors whatever m; a new
+  Trainer on the same save_dir resumes from the latest, at any m.
 - TensorBoard scalars on rank 0, bucket-averaged over 100 iterations as the
   reference's add_summary (core/trainer.py:161-168).
 
@@ -30,7 +34,7 @@ import torch
 
 from e2fgvi_tpu_torch.data.datasets import PrefetchLoader, TrainDataset
 from e2fgvi_tpu_torch.models import discriminator, e2fgvi
-from e2fgvi_tpu_torch.parallel import dist
+from e2fgvi_tpu_torch.parallel import dist, tensor
 from e2fgvi_tpu_torch.train import schedules
 from e2fgvi_tpu_torch.train import step as step_lib
 from e2fgvi_tpu_torch.utils import env
@@ -63,15 +67,17 @@ class Trainer:
         self.no_dis = bool(config["model"].get("no_dis", 0))
         self.gan_type = config["losses"].get("GAN_LOSS", "hinge")
         self.seed = int(config.get("seed", 2021))
-        dist.check_model_parallel(tr.get("model_parallel", 1))
+        model_parallel = tensor.check_model_parallel(
+            tr.get("model_parallel", 1))
 
         self.n_proc, self.rank = dist.initialize(self.device)
         self.device = dist.local_device(self.device, self.rank)
+        self.grid = tensor.make_grid(self.n_proc, self.rank, model_parallel)
         global_batch = int(tr["batch_size"])
-        if global_batch % self.n_proc:
+        if global_batch % self.grid.data:
             raise ValueError(f"batch_size {global_batch} does not split "
-                             f"over {self.n_proc} processes")
-        self.local_batch = global_batch // self.n_proc
+                             f"over {self.grid.data} data-parallel ranks")
+        self.local_batch = global_batch // self.grid.data
         self.dataset = TrainDataset(config["train_data_loader"],
                                     seed=self.seed)
         self.num_workers = int(tr.get("num_workers", 2))
@@ -79,18 +85,22 @@ class Trainer:
         gen, dis = build_models(config, self.device)
         if spynet_pretrained is not None:
             gen.update_spynet.load_state_dict(spynet_pretrained, strict=True)
+        tensor.shard_generator(gen, self.grid)
         self.lr_fn = schedules.make_schedule(dict(tr["scheduler"]),
                                              float(tr["lr"]))
         self.state = step_lib.TrainState(
             gen, dis, self.lr_fn, spynet_lr=float(tr.get("spynet_lr", 1.0)),
             beta1=float(tr.get("beta1", 0.0)),
             beta2=float(tr.get("beta2", 0.99)))
-        self.ckpt = TrainCheckpointer(config["save_dir"], self.rank)
+        self.ckpt = TrainCheckpointer(config["save_dir"], self.rank,
+                                      self.grid)
         it = self.ckpt.restore(self.state)
         if it is not None:
             log.info("resumed from iteration %d", it)
-        self.state.gen_call = dist.data_parallel(gen, self.device)
-        self.state.dis_call = dist.data_parallel(dis, self.device)
+        tensor.sync_replicated_grads(self.state.opt_g, gen, self.grid)
+        tensor.sync_replicated_grads(self.state.opt_d, dis, self.grid)
+        self.state.gen_call = dist.data_parallel(gen, self.device, self.grid)
+        self.state.dis_call = dist.data_parallel(dis, self.device, self.grid)
         self._step = step_lib.make_train_step(
             self.lt, config["losses"], no_dis=self.no_dis,
             gan_type=self.gan_type)
@@ -115,7 +125,8 @@ class Trainer:
             loader = PrefetchLoader(
                 self.dataset, batch_size=self.local_batch,
                 num_workers=self.num_workers, shuffle=True, seed=self.seed,
-                shard_index=self.rank, num_shards=self.n_proc)
+                shard_index=self.grid.data_index,
+                num_shards=self.grid.data)
             per_epoch = len(loader)
             if per_epoch == 0:
                 raise ValueError(f"{len(self.dataset)} videos make no full "

@@ -7,33 +7,49 @@ the inference CLIs load it), the discriminator with its spectral-norm
 vectors (dis.pth), and opt.pth with both optimizers, the frozen SPyNet of
 the flow loss and the iteration; `latest` names the newest. Only rank 0
 writes.
+
+The tensors are full whatever the tensor-parallel grid (parallel/tensor.py),
+as the JAX package's global arrays are: where the transformer is split over
+model ranks, save gathers the split parameters and their Adam moments
+first (every rank joins), and restore cuts what it loads to the rank's
+shard. So a checkpoint written at one model_parallel restores at another.
 """
 
 import os
 
 import torch
 
+from e2fgvi_tpu_torch.parallel import tensor
+
 
 class TrainCheckpointer:
     """Iteration-addressed training checkpoints with resume discovery."""
 
-    def __init__(self, save_dir, rank=0):
+    def __init__(self, save_dir, rank=0, grid=None):
         self.save_dir = os.path.abspath(save_dir)
         self.rank = rank
+        self.grid = grid if grid is not None and grid.model > 1 else None
         os.makedirs(self.save_dir, exist_ok=True)
 
     def it_dir(self, it):
         return os.path.join(self.save_dir, str(it))
 
     def save(self, state):
-        """Write a train step's TrainState at its iteration."""
+        """Write a train step's TrainState at its iteration (every rank
+        calls it; rank 0 writes)."""
+        gen, opt_g = state.gen.state_dict(), state.opt_g.state_dict()
+        if self.grid is not None:
+            gen = tensor.gather_over_model(gen, self.grid)
+            opt_g = tensor.gather_optimizer_state(
+                opt_g, tensor.optimizer_param_names(state.opt_g, state.gen),
+                self.grid)
         if self.rank != 0:
             return
         d = self.it_dir(state.step)
         os.makedirs(d, exist_ok=True)
-        torch.save(state.gen.state_dict(), os.path.join(d, "gen.pth"))
+        torch.save(gen, os.path.join(d, "gen.pth"))
         torch.save(state.dis.state_dict(), os.path.join(d, "dis.pth"))
-        torch.save({"opt_g": state.opt_g.state_dict(),
+        torch.save({"opt_g": opt_g,
                     "opt_d": state.opt_d.state_dict(),
                     "fixed_spynet": state.fixed_spynet.state_dict(),
                     "iteration": state.step}, os.path.join(d, "opt.pth"))
@@ -61,10 +77,18 @@ class TrainCheckpointer:
         def load(name):
             return torch.load(os.path.join(d, name), map_location=dev,
                               weights_only=True)
-        state.gen.load_state_dict(load("gen.pth"), strict=True)
-        state.dis.load_state_dict(load("dis.pth"), strict=True)
+        gen = load("gen.pth")
         opt = load("opt.pth")
-        state.opt_g.load_state_dict(opt["opt_g"])
+        opt_g = opt["opt_g"]
+        if self.grid is not None:
+            m, r = self.grid.model, self.grid.model_index
+            gen = tensor.shard_state_dict(gen, m, r)
+            opt_g = tensor.shard_optimizer_state(
+                opt_g, tensor.optimizer_param_names(state.opt_g, state.gen),
+                m, r)
+        state.gen.load_state_dict(gen, strict=True)
+        state.dis.load_state_dict(load("dis.pth"), strict=True)
+        state.opt_g.load_state_dict(opt_g)
         state.opt_d.load_state_dict(opt["opt_d"])
         state.fixed_spynet.load_state_dict(opt["fixed_spynet"], strict=True)
         state.step = int(opt["iteration"])

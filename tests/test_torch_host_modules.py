@@ -182,3 +182,17 @@ def test_psnr_ssim_match_jax_exactly(case):
     assert metrics.calculate_ssim(a, b) == jmetrics.calculate_ssim(a, b)
     if case == "identical":
         assert got[0] == float("inf") and got[1] == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_epe_matches_jax(dtype):
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((3, 40, 72, 2)).astype(dtype) * 4
+    b = a + rng.standard_normal(a.shape).astype(dtype)
+    got = metrics.calculate_epe(a, b)
+    assert isinstance(got, float)
+    assert got == jmetrics.calculate_epe(a, b)
+    assert metrics.calculate_epe(a, a) == 0.0
+    np.testing.assert_allclose(
+        got, np.mean(np.hypot(*np.moveaxis(a.astype(np.float64) - b, -1, 0))),
+        rtol=1e-6)

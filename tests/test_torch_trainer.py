@@ -113,8 +113,12 @@ def test_two_steps_and_a_resume_equal_an_uninterrupted_run(
 
 
 def test_model_parallel_is_not_ported(mini_train_root, tmp_path):
+    """Tensor parallelism is ported for model_parallel 1, 2 and 4 (tests/
+    test_torch_tensor_parallel.py); any other value, here 3, which divides
+    neither the 4 heads nor F3N's 40 hidden channels, is refused before
+    any process group is joined."""
     root, name = mini_train_root
     cfg = _config(root, name, tmp_path / "mp")
-    cfg["trainer"]["model_parallel"] = 2
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    cfg["trainer"]["model_parallel"] = 3
+    with pytest.raises(ValueError, match="model_parallel 3 .*4 heads"):
         Trainer(cfg, device="cpu")
