@@ -25,7 +25,7 @@ import torch
 
 from e2fgvi_tpu_torch.models import e2fgvi
 from e2fgvi_tpu_torch.ops.resize import resize_scale_quarter
-from e2fgvi_tpu_torch.utils import env
+from e2fgvi_tpu_torch.utils import env, timing
 
 # H/W are mirror-padded to multiples of the base model's quarter-res
 # feature grid (reference test.py:156-165); any padded size then tiles into
@@ -34,6 +34,8 @@ PAD_MOD = (60, 108)
 # frames per encode call (and pairs per SPyNet call): bounds how many
 # full-resolution encoder activations are live at once
 ENC_CHUNK = 35
+# the stage that follows each of window_stage's marks within a batch
+_WINDOW_NEXT = {"feat_prop": "transformer", "transformer": "decode"}
 
 
 def neighbor_ids(f: int, video_length: int, stride: int = 5) -> list:
@@ -180,14 +182,31 @@ class SlidingWindowInpainter:
         masks: (T, H, W, 1) {0, 1} dilated masks (the model's input);
         orig_frames: (T, H, W, 3) uint8 originals; binary_masks:
         (T, H, W, 1) {0, 1} compositing masks. timer: optional
-        utils.timing.StageTimer (stages encode, flows, feat_prop,
-        transformer, decode, blend). Returns T composited (H, W, 3) frames
-        of out_dtype."""
+        utils.timing.StageTimer. A timed call records the spans encode
+        (from the call's start; `prep` nested in it, the host's
+        preparation until frames and masks are on the device), flows,
+        then feat_prop, transformer and decode for each window batch,
+        blend and fetch (the copy back and the list of frames), inside
+        the root range `inpaint.video`, and counts host_syncs and
+        device_alloc_calls where the build has CUDA. Untimed, the call
+        runs the same statements and records nothing. Returns T
+        composited (H, W, 3) frames of out_dtype."""
+        if timer is None:
+            return self._inpaint(frames, masks, orig_frames, binary_masks,
+                                 progress, timing.NO_SPANS, None)
+        with timer.video(self.device):
+            return self._inpaint(
+                frames, masks, orig_frames, binary_masks, progress, timer,
+                lambda done: timer.mark(done, _WINDOW_NEXT.get(done)))
+
+    def _inpaint(self, frames, masks, orig_frames, binary_masks, progress,
+                 spans, window_mark):
+        """__call__'s body; spans: a StageTimer or timing.NO_SPANS;
+        window_mark: window_stage's `mark`, None when untimed."""
         dev, dt = self.device, self.dtype
         model = self.model
-        mark = timer.mark if timer is not None else None
-        if timer is not None:
-            timer.start()
+        spans.begin("encode")
+        spans.begin("prep")
         video_length = frames.shape[0]
         plans = plan_windows(video_length, self.neighbor_stride,
                              self.ref_length, self.num_ref)
@@ -199,6 +218,7 @@ class SlidingWindowInpainter:
         masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *self.pad_mod)
         fr = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(dev)
         mk = torch.from_numpy(np.ascontiguousarray(masks_u8)).to(dev)
+        spans.end("prep")
 
         # stage 1: encode once per frame (u8/255*2-1, masked, as the
         # reference's inference path normalizes)
@@ -211,8 +231,7 @@ class SlidingWindowInpainter:
             smalls.append(resize_scale_quarter((masked + 1.0) / 2.0))
         feat_all = torch.cat(feats, 0)
         small_all = torch.cat(smalls, 0)
-        if mark:
-            mark("encode")
+        spans.mark("encode", "flows")
 
         # stage 2: SPyNet once per adjacent pair
         n_pairs = video_length - 1
@@ -230,8 +249,7 @@ class SlidingWindowInpainter:
                 fbs.append(fb)
             flows_f = torch.cat(ffs, 0)
             flows_b = torch.cat(fbs, 0)
-        if mark:
-            mark("flows")
+        spans.mark("flows", "feat_prop")
 
         # stage 3: all windows end-padded to one geometry, max_batch each
         n_local, idx_all, bw_all, fw_all, val_all, fval_all = \
@@ -251,7 +269,8 @@ class SlidingWindowInpainter:
                 model, feat, (ff, fb), n_local, num_out=n_local,
                 valid_local=torch.as_tensor(val_all[sl], device=dev),
                 frame_valid=torch.as_tensor(fval_all[sl], device=dev),
-                mark=mark)
+                mark=window_mark)
+            spans.begin("feat_prop" if sl.stop < len(plans) else "blend")
             # the reference's (pred+1)/2*255 -> uint8 truncation
             out = ((out.float() + 1.0) / 2.0 * 255.0).clamp(0.0, 255.0)
             outs.append(out.to(torch.uint8).reshape(b * n_local,
@@ -276,7 +295,8 @@ class SlidingWindowInpainter:
             comp = torch.where(bm, blend.to(torch.uint8), orig)
         else:
             comp = torch.where(bm, blend, orig.float())
-        if mark:
-            mark("blend")
+        spans.mark("blend", "fetch")
         comp_np = comp.cpu().numpy().astype(self.out_dtype, copy=False)
-        return [comp_np[i] for i in range(video_length)]
+        out = [comp_np[i] for i in range(video_length)]
+        spans.end("fetch")
+        return out

@@ -1,12 +1,14 @@
 """The port's serving slice as a whole: window_stage against the JAX
 package, the generator against the reference golden, the pipeline's host
-tables against the JAX pipeline's, the protocol golden (slow tier), and
-the port's independence from JAX."""
+tables against the JAX pipeline's, the protocol golden (slow tier), the
+port's independence from JAX, and a call's spans and counters under
+utils/timing.StageTimer."""
 
 import ast
 import os
 import subprocess
 import sys
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,8 +20,9 @@ from e2fgvi_tpu.data import pipeline as jpipe
 from e2fgvi_tpu.models import e2fgvi as jgen
 from e2fgvi_tpu_torch.data import pipeline
 from e2fgvi_tpu_torch.models import e2fgvi as tgen
-from e2fgvi_tpu_torch.utils import env
+from e2fgvi_tpu_torch.utils import env, timing
 from test_generator_golden import fill_weight
+from test_torch_utils import FakeCuda
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -338,3 +341,110 @@ def test_cuda_device_raises_without_cuda(model):
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline.SlidingWindowInpainter(model, device="cuda")
     assert env.device("cpu").type == "cpu"
+
+
+STAGES = ("encode", "flows", "feat_prop", "transformer", "decode", "blend")
+
+
+@pytest.fixture(scope="module")
+def served():
+    """The HQ model (seeded) behind the pipeline at 108x60, 12 frames in
+    window batches of 2 (3 windows: 2 batches), and an untimed call's
+    output."""
+    torch.manual_seed(0)
+    runner = pipeline.SlidingWindowInpainter(
+        tgen.Generator("hq").eval(), max_batch=2, out_dtype=np.uint8,
+        device="cpu")
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (12, 60, 108, 3), dtype=np.uint8)
+    masks = np.zeros((12, 60, 108, 1), np.uint8)
+    masks[:, 20:44, 30:70] = 1
+    video = (frames, masks.astype(np.float32), frames, masks)
+    return runner, video, runner(*video)
+
+
+def _ranges(fn):
+    """inpaint.* ranges opened while fn() runs under the CPU profiler:
+    [(name, start, end)] in start order."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.name.startswith(timing.RANGE_PREFIX)),
+                  key=lambda r: r[1])
+
+
+def test_recorded_call_reports_its_spans(served):
+    """The six stages plus prep and fetch; prep inside encode; the frames
+    bit-identical to the untimed call's; no counter on this build."""
+    runner, video, want = served
+    timer = timing.StageTimer()
+    got = runner(*video, timer=timer)
+    stages = timer.totals()
+    assert set(stages) == set(STAGES) | {"prep", "fetch"}
+    assert 0 < stages["prep"] <= stages["encode"]
+    assert all(v > 0 for v in stages.values())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_recorded_call_ranges_nest(served):
+    """Under the profiler: one inpaint.video around every span; prep
+    within encode; the top-level spans in order, one after another, with
+    feat_prop, transformer and decode once a window batch."""
+    runner, video, _ = served
+    timer = timing.StageTimer()
+    ranges = _ranges(lambda: runner(*video, timer=timer))
+    root = [r for r in ranges if r[0] == "inpaint.video"]
+    assert len(root) == 1
+    spans = [r for r in ranges if r[0] != "inpaint.video"]
+    assert all(root[0][1] <= s <= e <= root[0][2] for _, s, e in spans)
+    (prep,) = [r for r in spans if r[0] == "inpaint.prep"]
+    top = [r for r in spans if r[0] != "inpaint.prep"]
+    assert [n[len(timing.RANGE_PREFIX):] for n, _, _ in top] == [
+        "encode", "flows"] + ["feat_prop", "transformer", "decode"] * 2 + [
+        "blend", "fetch"]
+    assert top[0][1] <= prep[1] <= prep[2] <= top[0][2]
+    assert all(a[2] <= b[1] for a, b in zip(top, top[1:]))
+    assert set(timer.totals()) == set(STAGES) | {"prep", "fetch"}
+
+
+def test_unrecorded_call_records_nothing(served, monkeypatch):
+    """timer=None opens no range and touches neither the sync debug mode
+    nor the allocator's statistics (`memory_stats_as_nested_dict`)."""
+    runner, video, want = served
+    cuda = FakeCuda(monkeypatch)
+    got = []
+    assert _ranges(lambda: got.extend(runner(*video))) == []
+    assert cuda.set_calls == [] and cuda.stats_calls == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_recorded_call_restores_the_sync_mode_on_error(served,
+                                                       monkeypatch):
+    """With CUDA's sync debug mode and allocator statistics stood in, a
+    recorded call counts both, and one that raises mid-way (after its
+    first window batch) still restores the mode and the warning filters
+    it found."""
+    runner, video, _ = served
+    cuda = FakeCuda(monkeypatch, mode=2)
+    timer = timing.StageTimer()
+    runner(*video, timer=timer)
+    stages = timer.totals()
+    assert cuda.set_calls == ["warn", 2]
+    assert stages["host_syncs"] == 0 and stages["device_alloc_calls"] == 0
+    assert stages["host_syncs.prep"] == 0
+
+    def fail(done, total):
+        raise RuntimeError("stopped mid-way")
+
+    filters, shown = list(warnings.filters), warnings.showwarning
+    with pytest.raises(RuntimeError, match="mid-way"):
+        runner(*video, timer=timer, progress=fail)
+    assert cuda.set_calls == ["warn", 2, "warn", 2] and cuda.mode == 2
+    assert warnings.filters == filters and warnings.showwarning is shown
+    assert {"encode", "flows", "feat_prop", "transformer",
+            "decode"} <= set(timer.totals())
