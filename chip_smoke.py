@@ -20,7 +20,9 @@ Phases, one line each (any failed check raises and exits nonzero):
               staged kernel of E5/E6 (band_staged_kernel) and of E1 (its
               CPair instantiation) must stage by LDGSTS or UTMALDG and
               read its corners by LDS (executable ones: cp.async's
-              never-taken @!PT LDS padding does not count)
+              never-taken @!PT LDS padding does not count); C1 (both
+              its N-tile widths) must hold TF32 HGMMA and UTMALDG and no
+              HMMA, and ptxas must report 0 spill bytes for it
   3. kernels  K1 deform_conv, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
@@ -34,7 +36,15 @@ Phases, one line each (any failed check raises and exits nonzero):
               FP32-rate bound beside it;
               K3 also at B=1 with only the first frame valid, and at
               the 2 and 1 heads a rank runs at model_parallel 2 and 4
-              (both dtypes, the same bars).
+              (both dtypes, the same bars);
+              C1 (conv3x3, feat_prop's float32 3x3 convolutions) at each
+              of their six shapes with its epilogue, on 60x108 maps at
+              N = 4 (timed) and N = 1, and on HQ's 120x216 at N = 1
+              (timed): against F.conv2d with TF32 off and float64, its
+              bound at the 3xTF32 rate and at the FP32 rate, and as
+              library_ms the best of cuDNN's float32 convolution in the
+              port's NHWC call, on a contiguous NCHW tensor, and either
+              under cudnn.benchmark (yardsticks the port never calls).
               Beside each kernel's ms: its plain version's, the one
               PyTorch call that computes the same function where there is
               one (library_ms: F.grid_sample for K2,
@@ -141,10 +151,15 @@ HQ720_MAP = (180, 324)         # ... at 1280x720, mirror-padded to 1296x720
 # columns, where its 3xTF32 contraction over a wider map is held to
 # F32_TOL only (phase 7).
 F32_TOL = {"deform_conv": (1e-5, 1e-4), "flow_warp": (1e-5, 1e-4),
-           "focal_attention": (2e-4, 2e-4),
+           "focal_attention": (2e-4, 2e-4), "conv3x3": (1e-5, 1e-5),
            "band_sample": (1e-5, 1e-5), "band_sample_cbatch": (1e-5, 1e-5),
            "row_gather": (0.0, 0.0), "bilinear4_sample": (1e-6, 1e-6)}
-F32_MAX_ABS = {"deform_conv": 2e-5, "focal_attention": 1e-5}
+# C1 (conv3x3) lands within 3.5e-6 of float64 at feat_prop's shapes
+# (outputs ~5), where cuDNN's float32 lands 1.4e-5 from it: held to 3e-5
+# of the plain version (cuDNN float32) and to C1_MAX_ABS_F64 of float64.
+F32_MAX_ABS = {"deform_conv": 2e-5, "focal_attention": 1e-5,
+               "conv3x3": 3e-5}
+C1_MAX_ABS_F64 = 1e-5
 BF16_REL = {"deform_conv": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2,
             "band_sample": 2e-2, "band_sample_cbatch": 2e-2,
             "band_sample_xpair": 2e-2, "band_sample_cpair": 2e-2,
@@ -177,6 +192,9 @@ REPLACES = {
     "bilinear4_sample": (CSRC + "gather.cu", "scripts/exp_gather.py:171"),
     "band_attention": (CSRC + "band_attention.cu",
                        "scripts/exp_attn_band_r04.py:67"),
+    # C1 replaces no TPU kernel: the JAX package left these convolutions
+    # to XLA
+    "conv3x3": (CSRC + "conv.cu", None),
 }
 
 
@@ -388,7 +406,109 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     res["focal_attention"]["heads"] = {
         str(heads): check_k3(dev, b, h, w, t, timed=False, heads=heads)[0]
         for heads in (2, 1)}
+    res["conv3x3"] = check_conv3x3(dev, C1_BATCH, h, w, timed)
+    check_conv3x3(dev, 1, h, w, timed=False)
+    res["conv3x3"]["hq"] = check_conv3x3(dev, 1, *HQ_MAP, timed)
     return res
+
+
+# C1's shapes: feat_prop's six 3x3 convolutions (name, Cin, Cout, epilogue)
+# and how many of each one propagation step of the backward pass runs;
+# float32 serves at max_batch 4
+C1_CONVS = (("offset0", 388, 128, "leaky", 1), ("offset1", 128, 128,
+                                                "leaky", 2),
+            ("offset3", 128, 432, "none", 1),
+            ("backbone0", 256, 128, "leaky", 1),
+            ("backbone0_fwd", 384, 128, "leaky", 0),
+            ("backbone1", 128, 128, "residual", 1))
+C1_BATCH = 4
+
+
+def c1_library(x, wt, b):
+    """The best (ms, form) of cuDNN's float32 convolution (TF32 off) on x:
+    in the port's call (ops.convs.conv2d: a channels-last view), on a
+    contiguous NCHW copy, and either under cudnn.benchmark. Yardsticks the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    xn = x.permute(0, 3, 1, 2)
+    xc = xn.contiguous()
+    best = []
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            for form, t in (("nhwc", xn), ("nchw", xc)):
+                best.append((cuda_ms(lambda: F.conv2d(t, wt, b, padding=1)),
+                             form + ("_benchmark" if bench else "")))
+        finally:
+            torch.backends.cudnn.benchmark = False
+    return min(best)
+
+
+def check_conv3x3(dev, n, h, w, timed=True):
+    """C1 against its plain version (F.conv2d, TF32 off, then the
+    epilogue) and float64 at feat_prop's six shapes on n maps of h x w:
+    {conv: result}, and, timed, the sums over one backward propagation
+    step's six convolutions (offset1 twice) as the entry's ms, plain_ms,
+    bound_ms and library_ms, their worst errors beside."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import conv
+    randn = _randn_fn(dev, seed=3)
+
+    def c1_bound(args, out, tf32=False):
+        x, wt = args[0], args[1]
+        flops = 2 * out.numel() * wt[0].numel()
+        return roofline(args[:3], [out], [gemm_ops(flops, x, tf32)])
+
+    res = {}
+    for name, cin, cout, epilogue, _ in C1_CONVS:
+        x = randn(n, h, w, cin)
+        wt, b = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5), randn(
+            cout, std=0.1)
+        r = randn(n, h, w, cout) if epilogue == "residual" else None
+        slope = 0.1 if epilogue == "leaky" else None
+
+        def kernel_fn(x, wt, b, r):
+            return conv.conv3x3(x, wt, b, negative_slope=slope, residual=r,
+                                operands=ops)
+
+        def plain_fn(x, wt, b, r):
+            return conv.conv3x3_plain(x, wt, b, r, slope)
+
+        args = (x, wt, b, r)
+        ops = conv.conv_operands(wt, b)     # once a pass, as feat_prop
+        before = conv.LAUNCHES["conv3x3"]
+        e = compare("conv3x3", kernel_fn, plain_fn, lambda dt: args, timed,
+                    ("float32",), bound_fn=c1_bound,
+                    tf32_bound_fn=lambda a, out: c1_bound(a, out, True))
+        if conv.LAUNCHES["conv3x3"] == before:
+            raise AssertionError("conv3x3 did not launch C1")
+        want64 = plain_fn(*(None if t is None else t.double()
+                            for t in args))
+        e["max_abs_err_f64"] = float(
+            (kernel_fn(*args).double() - want64).abs().max())
+        if not e["max_abs_err_f64"] <= C1_MAX_ABS_F64:
+            raise AssertionError(f"conv3x3 {name}: {e['max_abs_err_f64']} "
+                                 f"from float64 > {C1_MAX_ABS_F64}")
+        if timed:
+            e["library_ms"], e["library"] = c1_library(x, wt, b)
+            e["share"] = e["bound_ms"] / e["ms"]
+        res[name] = e
+        del x, wt, b, r, args, ops, want64
+        torch.cuda.empty_cache()
+    out = {"n": n, "map": [h, w], "shapes": res,
+           "max_abs_err": max(e["max_abs_err"] for e in res.values()),
+           "max_abs_err_f64": max(e["max_abs_err_f64"]
+                                  for e in res.values())}
+    if timed:
+        for key in ("ms", "plain_ms", "bound_ms", "bound_ms_f32_fp32",
+                    "library_ms"):
+            out[key] = sum(res[name][key] * k
+                           for name, *_, k in C1_CONVS)
+        out["bound_by"] = "operations"
+        out["share"] = out["bound_ms"] / out["ms"]
+    return out
 
 
 def k1k2_inputs(randn, b, h, w):
@@ -632,7 +752,7 @@ def check_k3(dev, b, h, w, t=17, timed=True, pad="serving", chunked=False,
                    plain_chunks=k3_chunks if chunked else None), (nwin, s)
 
 
-SERVING_KERNELS = ("deform", "focal_attention")
+SERVING_KERNELS = ("deform", "focal_attention", "conv")
 SERVING_NAMES = ("deform_conv", "flow_warp", "focal_attention")
 EXPERIMENT_KERNELS = ("band_sampler", "gather", "band_attention")
 
@@ -749,8 +869,13 @@ def serve(model, dev, n_videos=3, t=70, timer_cls=None, max_batch=B,
             raise AssertionError("output differs outside the mask")
         runs.append({"seconds": dt, "fps": t / dt, "stages_ms": stages})
     counts = launch_counts()
-    if not all(v > 0 for v in counts.values()):
-        raise AssertionError(f"serving missed a kernel: {counts}")
+    # C1 takes feat_prop's float32 convolutions; bfloat16 bypasses it
+    c1 = counts.pop("conv3x3")
+    if not all(v > 0 for v in counts.values()) or (
+            (c1 > 0) != (dtype == "float32")):
+        raise AssertionError(f"serving missed a kernel: {counts}, C1 "
+                             f"{c1} in {dtype}")
+    counts["conv3x3"] = c1
     return runs, counts, videos[0]
 
 
@@ -1082,8 +1207,11 @@ def train_base(dev, root, save_dir, batch):
     res["launches_forward_per_step"] = fwd
     res["launches_remat_per_step"] = {
         k: counts[k] / TRAIN_STEPS - fwd[k] for k in counts}
+    # remat recomputes every propagation step but the first, whose two
+    # backbone convolutions a direction (C1) are not checkpointed
+    recomputed = dict(fwd, conv3x3=fwd["conv3x3"] - 4)
     if res["launches_remat_per_step"] != {k: float(v) for k, v in
-                                          fwd.items()}:
+                                          recomputed.items()}:
         raise AssertionError(f"remat did not run every kernel again: "
                              f"{res['launches_remat_per_step']} vs {fwd}")
 
@@ -1977,6 +2105,21 @@ def main():
         if not ((ops["LDGSTS"] or ops["UTMALDG"]) and ops["LDS"]):
             raise AssertionError(f"{label} does not stage its slab in "
                                  f"shared memory: {ops}")
+    # C1: 3xTF32 on TF32 wgmma fed by TMA, no mma.sync, no spills
+    info = ptxas_info(nvcc_log, "conv3x3_tf32_kernel")
+    log(f"ptxas conv3x3_tf32_kernel: {json.dumps(info)}")
+    if len(info) != 2 or any(i.get("spill_stores", 1) or
+                             i.get("spill_loads", 1) for i in info):
+        raise AssertionError(f"C1: spills or no ptxas report: {info}")
+    hist = sass_histograms(lib_path, ["conv3x3_tf32_kernel"])[
+        "conv3x3_tf32_kernel"]
+    ops = {op: n for op, n in hist.items()
+           if op.startswith(("HGMMA", "UTMALDG", "HMMA"))}
+    log(f"C1 SASS opcodes: {json.dumps(ops)}")
+    if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
+            and any(op.startswith("UTMALDG") for op in ops)) or any(
+                op.startswith("HMMA") for op in ops):
+        raise AssertionError(f"C1 is not on TF32 wgmma + TMA alone: {ops}")
     csrc = os.path.join(ROOT, CSRC)
     if any("flash_mma" in name or "flash_mma" in open(
             os.path.join(csrc, name)).read() for name in os.listdir(csrc)):
@@ -2125,8 +2268,10 @@ def main():
                "max_abs_err_1xtf32")
     e2_keys = ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
                "k3_layer_ms", "parity")
+    c1_keys = ("shapes", "hq", "share", "max_abs_err_f64", "n", "map")
     extra = ("ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
-             "library_ms_f32", "bf16_rel_err", "heads", *k1_keys, *e2_keys)
+             "library_ms_f32", "bf16_rel_err", "heads", *k1_keys, *e2_keys,
+             *c1_keys)
     hq_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_f32",
                "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
                "library_ms_f32",
@@ -2143,6 +2288,8 @@ def main():
                  "bound_by": r["bound_by"],
                  "library_ms": r.get("library_ms"),
                  **{k: r[k] for k in extra if k in r}}
+        if name == "conv3x3":         # bf16 serving bypasses C1
+            entry["launches_f32_serving"] = counts32[name]
         if name in SERVING_NAMES:     # the HQ shapes' numbers (phase 7)
             entry["hq"] = {label: {k: v for k, v in hres[label][name].items()
                                    if k in hq_keys}

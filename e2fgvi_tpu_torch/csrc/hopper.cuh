@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: the bf16 K3
-// (focal_attention.cu), E2 (band_attention.cu) and K1 in both dtypes
-// (deform.cu).
+// (focal_attention.cu), E2 (band_attention.cu), K1 in both dtypes
+// (deform.cu) and C1 (conv.cu).
 //
 // - mbarriers with a wait that traps after ~2^33 clocks, so a broken
 //   pipeline fails the launch instead of hanging the card;
-// - TMA tile and bulk copies that complete on an mbarrier;
+// - TMA tile (3-D and 4-D) and bulk copies that complete on an mbarrier;
 // - cp.async row copies (zero-filling where there is no source) whose
 //   completion arrives on an mbarrier, the proxy fence that lets wgmma
 //   read what they wrote, and named barriers for one warpgroup;
 // - wgmma m64n128k16 (bf16 in, f32 accumulate) with A from shared memory
 //   or registers, wgmma m64n128k8, m64n64k8 and m64n32k8 (tf32 in, both
-//   operands K-major in shared memory) and m64n128k8 with a tf32 A from
-//   registers, their 128-byte-swizzle descriptor and the group fences;
+//   operands K-major in shared memory) and m64n128k8 and m64n144k8 with a
+//   tf32 A from registers, their 128-byte-swizzle descriptor and the group
+//   fences;
 // - the host's cuTensorMapEncodeTiled, looked up in the libcuda PyTorch
 //   has loaded: the kernel library links no driver API.
 #pragma once
@@ -78,6 +79,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// box (c0, c1, c2, c3) of a 4-D tensor map into shared memory at dst;
+// coordinates may be negative (the box's elements outside the tensor are
+// zeros)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -267,6 +283,41 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64],
         "r"(accumulate));
 }
 
+// d (64x144, f32) = (accumulate ? d : 0) + A (64x8, tf32 in registers, as
+// wgmma_tf32_rs) B (8x144, tf32 K-major in shared memory)
+__device__ __forceinline__ void wgmma_tf32_rs_n144(float (&d)[72],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71}"
+      ", {%72, %73, %74, %75}, %76, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -297,6 +348,21 @@ inline bool encode_sw128(CUtensorMap* map, CUtensorMapDataType type,
   if (encoder() == nullptr) return false;
   const cuuint32_t estride[3] = {1, 1, 1};
   return encoder()(map, type, 3,
+                   const_cast<void*>(ptr), dims, strides, box, estride,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same for a 4-D tensor map: dims innermost first, strides (bytes) of
+// dims 1 to 3, box sizes
+inline bool encode_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                         const void* ptr, const cuuint64_t (&dims)[4],
+                         const cuuint64_t (&strides)[3],
+                         const cuuint32_t (&box)[4]) {
+  if (encoder() == nullptr) return false;
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return encoder()(map, type, 4,
                    const_cast<void*>(ptr), dims, strides, box, estride,
                    CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -81,11 +81,11 @@ def check_cuda_inputs(name, *tensors):
             raise ValueError(f"{name}: inputs must be contiguous")
         if t.requires_grad:
             raise RuntimeError(
-                f"{name}: a kernel launch is forward-only; K1, K2 and K3 "
+                f"{name}: a kernel launch is forward-only; K1, K2, K3 and C1 "
                 "take inputs that require grad through their wrappers' "
                 "autograd Functions (kernels.deform.DeformConvHead, FlowWarp, "
-                "kernels.focal_attention.FocalAttention), other kernels run "
-                "under torch.no_grad()")
+                "kernels.focal_attention.FocalAttention, kernels.conv."
+                "Conv3x3), other kernels run under torch.no_grad()")
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,11 @@
 
 Counterpart of e2fgvi_tpu/models/feat_prop.py (reference
 model/modules/feat_prop.py). The recurrence is a Python loop. Deformable
-alignment runs through K1 and every warp through K2 (kernels/deform.py);
-on CPU tensors both take their plain versions.
+alignment runs through K1 and every warp through K2 (kernels/deform.py),
+and in float32 the 3x3 convolutions of the offset head and the backbone
+through C1 (kernels/conv.py), with their LeakyReLU and the backbone's
+residual add; in bfloat16 those are cuDNN's (ops.convs.conv2d). On CPU
+tensors every kernel takes its plain version.
 
 Parameter names follow the released checkpoint:
 feat_prop_module.deform_align.{backward_,forward_}.{weight,bias,conv_offset},
@@ -14,14 +17,39 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from e2fgvi_tpu_torch.kernels import conv as c1
 from e2fgvi_tpu_torch.kernels.deform import (conv_operands, flow_warp,
                                              modulated_deform_conv2d_head)
-from e2fgvi_tpu_torch.ops.convs import conv2d, leaky_relu
+from e2fgvi_tpu_torch.ops.convs import conv2d
 
 DEFORM_GROUPS = 16
 MAX_RESIDUE_MAGNITUDE = 10.0
 _K = 9
 _DIRS = ("backward", "forward")
+LEAKY = 0.1
+
+
+def conv3x3(x, conv, operands=None, negative_slope=None, residual=None):
+    """One of the propagation's 3x3 convolutions (an nn.Conv2d's weight and
+    bias) with its epilogue: C1 (kernels.conv.conv3x3) for float32 CUDA
+    tensors, which launches or raises; for bfloat16 ones (cuDNN on the
+    tensor cores) and CPU tensors of any width, C1's plain version,
+    ops.convs.conv2d and the epilogue."""
+    if x.is_cuda and x.dtype == torch.float32:
+        return c1.conv3x3(x, conv.weight, conv.bias,
+                          negative_slope=negative_slope, residual=residual,
+                          operands=operands)
+    return c1.conv3x3_plain(x, conv.weight, conv.bias, residual,
+                            negative_slope)
+
+
+def conv3x3_operands(convs, x):
+    """C1's weight and bias of each of `convs` (kernels.conv.conv_operands)
+    for float32 CUDA inputs like x, made once for all of a pass's steps;
+    Nones elsewhere."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        return [None] * len(convs)
+    return [c1.conv_operands(c.weight, c.bias) for c in convs]
 
 
 class SecondOrderDeformableAlignment(nn.Module):
@@ -42,6 +70,9 @@ class SecondOrderDeformableAlignment(nn.Module):
             nn.Conv2d(channel, 27 * deform_groups, 3, padding=1),
         )
 
+    def offset_convs(self):
+        return [m for m in self.conv_offset if isinstance(m, nn.Conv2d)]
+
     def kernel_operands(self, x):
         """The DCN weight and bias reordered for K1 on CUDA inputs like x
         (kernels.deform.conv_operands), once for all of a pass's steps;
@@ -51,17 +82,19 @@ class SecondOrderDeformableAlignment(nn.Module):
         return conv_operands(self.weight, self.bias, x.dtype,
                              self.deform_groups)
 
-    def forward(self, x, cond, flow_1, flow_2, operands=None):
+    def forward(self, x, cond, flow_1, flow_2, operands=None,
+                offset_operands=None):
         """x: (N, H, W, 2C) = [first-order, second-order state];
         cond: (N, H, W, 3C) = [warped n1, current, warped n2];
-        operands: kernel_operands(x), made per call when None."""
-        convs = [m for m in self.conv_offset if isinstance(m, nn.Conv2d)]
+        operands: kernel_operands(x), made per call when None;
+        offset_operands: conv3x3_operands(offset_convs(), x), likewise."""
+        convs = self.offset_convs()
+        ops = offset_operands or [None] * len(convs)
         feat = torch.cat([cond, flow_1.to(cond.dtype), flow_2.to(cond.dtype)],
                          dim=-1)
         for i, c in enumerate(convs):
-            feat = conv2d(feat, c.weight, c.bias, padding=1)
-            if i < len(convs) - 1:
-                feat = leaky_relu(feat, 0.1)
+            feat = conv3x3(feat, c, ops[i],
+                           LEAKY if i < len(convs) - 1 else None)
         return modulated_deform_conv2d_head(
             x, feat, flow_1, flow_2, self.weight, self.bias,
             max_residue=MAX_RESIDUE_MAGNITUDE, operands=operands)
@@ -81,11 +114,17 @@ class FeatPropModule(nn.Module):
             for i, d in enumerate(_DIRS)})
         self.fusion = nn.Conv2d(2 * channel, channel, 1)
 
-    def _backbone(self, direction, feat_cat, feat_prop):
+    def backbone_convs(self, direction):
         seq = self.backbone[f"{direction}_"]
-        r = leaky_relu(conv2d(feat_cat, seq[0].weight, seq[0].bias,
-                              padding=1), 0.1)
-        return feat_prop + conv2d(r, seq[2].weight, seq[2].bias, padding=1)
+        return [seq[0], seq[2]]
+
+    def _backbone(self, direction, feat_cat, feat_prop, operands=None):
+        """feat_prop + conv(LeakyReLU(conv(feat_cat))); operands:
+        conv3x3_operands(backbone_convs(direction), feat_cat) or None."""
+        first, second = self.backbone_convs(direction)
+        ops = operands or (None, None)
+        r = conv3x3(feat_cat, first, ops[0], negative_slope=LEAKY)
+        return conv3x3(r, second, ops[1], residual=feat_prop)
 
 
 def bidirectional_propagation(module, x, flows_backward_branch,
@@ -115,6 +154,8 @@ def bidirectional_propagation(module, x, flows_backward_branch,
     for direction in _DIRS:
         align = module.deform_align[f"{direction}_"]
         operands = align.kernel_operands(x)
+        offset_ops = conv3x3_operands(align.offset_convs(), x)
+        backbone_ops = conv3x3_operands(module.backbone_convs(direction), x)
         if direction == "backward":
             spatial = x.flip(1)
             flows = flows_backward_branch
@@ -124,7 +165,8 @@ def bidirectional_propagation(module, x, flows_backward_branch,
         masked = first_real_step is not None and direction == "backward"
 
         def step(i, prev1, prev2, cur, bwd, direction=direction,
-                 align=align, operands=operands, flows=flows, masked=masked):
+                 align=align, operands=operands, offset_ops=offset_ops,
+                 backbone_ops=backbone_ops, flows=flows, masked=masked):
             flow_n1 = flows[:, i - 1].float()
             f2 = flows[:, max(i - 2, 0)].float()
             use2 = torch.full((b,), float(i > 1), device=x.device)
@@ -138,7 +180,8 @@ def bidirectional_propagation(module, x, flows_backward_branch,
                              torch.cat([flow_n1, flow_n2], 0))
             cond = torch.cat([both[:b], cur, both[b:]], -1)
             stacked = torch.cat([prev1, feat_n2], -1)
-            aligned = align(stacked, cond, flow_n1, flow_n2, operands)
+            aligned = align(stacked, cond, flow_n1, flow_n2, operands,
+                            offset_ops)
             if masked:
                 # first real step: drop the alignment of padding state
                 first = (first_real_step == i)[:, None, None, None]
@@ -147,12 +190,14 @@ def bidirectional_propagation(module, x, flows_backward_branch,
             cat = [cur, aligned]
             if bwd is not None:
                 cat.insert(1, bwd)
-            return module._backbone(direction, torch.cat(cat, -1), aligned)
+            return module._backbone(direction, torch.cat(cat, -1), aligned,
+                                    backbone_ops)
 
         cat0 = [spatial[:, 0], zeros]
         if direction == "forward":
             cat0.insert(1, feats["backward"][0])
-        outs = [module._backbone(direction, torch.cat(cat0, -1), zeros)]
+        outs = [module._backbone(direction, torch.cat(cat0, -1), zeros,
+                                 backbone_ops)]
         prev1, prev2 = outs[0], zeros
         for i in range(1, t):
             bwd = feats["backward"][i] if direction == "forward" else None

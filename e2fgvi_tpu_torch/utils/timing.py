@@ -11,11 +11,13 @@ copies, inside the root range `inpaint.video` of its call.
 
 Inside a call the timer also counts, where the build has CUDA:
 `host_syncs`, each point at which the host waited for the device (PyTorch's
-sync debug mode set to "warn" for the call, its warnings counted), and
+sync debug mode set to "warn" for the call, its warnings counted),
 `device_alloc_calls`, the caching allocator's calls to the driver
-(`num_device_alloc + num_device_free` of its statistics).
-Both are read at every span boundary and charged to the innermost open
-span. Spans and counts stay in memory until `totals()` reads them.
+(`num_device_alloc + num_device_free` of its statistics), and
+`conv_launches`, the launches of C1, the float32 3x3 convolution kernel
+(kernels/conv.py `LAUNCHES`). Each is read at every span boundary and
+charged to the innermost open span. Spans and counts stay in memory until
+`totals()` reads them.
 """
 
 import contextlib
@@ -157,7 +159,9 @@ class StageTimer:
         warnings.showwarning = showwarning
         torch.cuda.set_sync_debug_mode("warn")
         stack.callback(torch.cuda.set_sync_debug_mode, mode)
-        readers = {"host_syncs": lambda: self._syncs}
+        from e2fgvi_tpu_torch.kernels import conv
+        readers = {"host_syncs": lambda: self._syncs,
+                   "conv_launches": lambda: conv.LAUNCHES["conv3x3"]}
         if "num_device_alloc" in torch.cuda.memory_stats_as_nested_dict():
             readers["device_alloc_calls"] = _alloc_calls
         return readers

@@ -14,6 +14,7 @@ import torch
 
 from e2fgvi_tpu_torch.kernels import band_attention as ba
 from e2fgvi_tpu_torch.kernels import band_sampler as bs
+from e2fgvi_tpu_torch.kernels import conv
 from e2fgvi_tpu_torch.kernels import deform
 from e2fgvi_tpu_torch.kernels import focal_attention as fa
 from e2fgvi_tpu_torch.kernels import gather
@@ -383,6 +384,167 @@ def test_kernel_functions_give_the_plain_gradients(gen):
                   (q, k, v), ct)
     for t, w_ in zip(leaves, want):
         torch.testing.assert_close(t.grad, w_, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# C1: feat_prop's float32 3x3 convolutions
+
+# (Cin, Cout, epilogue) as feat_prop runs them: the offset head's four, the
+# backbone's two (256 backward, 384 forward, then 128 with the residual)
+_C1_CONVS = {"offset0": (388, 128, "leaky"), "offset1": (128, 128, "leaky"),
+             "offset3": (128, 432, "none"), "backbone0": (256, 128, "leaky"),
+             "backbone0_fwd": (384, 128, "leaky"),
+             "backbone1": (128, 128, "residual")}
+# C1 lands within 3.5e-6 of float64 at these shapes (outputs ~5), where
+# cuDNN's float32 lands 1.4e-5 from it; one TF32 pass is ~1e-3 off. So C1
+# is held to 1e-5 of float64, and to 3e-5 of the plain version (cuDNN
+# float32, TF32 off), whose own error is most of that distance
+# (chip_smoke.F32_MAX_ABS["conv3x3"]).
+_C1_MAX_ABS_F64, _C1_MAX_ABS = 1e-5, 3e-5
+
+
+def _c1_inputs(gen, n, h, w, cin, cout, epilogue):
+    x = _randn(gen, n, h, w, cin)
+    wt = _randn(gen, cout, cin, 3, 3, std=(9 * cin) ** -0.5)
+    b = _randn(gen, cout, std=0.1)
+    kw = {"negative_slope": 0.1} if epilogue == "leaky" else {}
+    if epilogue == "residual":
+        kw["residual"] = _randn(gen, n, h, w, cout)
+    return x, wt, b, kw
+
+
+def _c1_plain(x, wt, b, kw, dtype=torch.float32):
+    r = kw.get("residual")
+    return conv.conv3x3_plain(x.to(dtype), wt.to(dtype), b.to(dtype),
+                              None if r is None else r.to(dtype),
+                              kw.get("negative_slope"))
+
+
+@pytest.mark.parametrize("conv_name", list(_C1_CONVS))
+@pytest.mark.parametrize("size", [(1, 60, 108), (4, 60, 108),
+                                  (1, 120, 216)])
+def test_conv3x3_matches_conv2d_and_float64(gen, size, conv_name):
+    """C1 at feat_prop's shapes (60x108 maps at N = 1 and 4, HQ's 120x216
+    at N = 1), each with its epilogue: one launch, within its bars of
+    F.conv2d with TF32 off and of float64."""
+    x, wt, b, kw = _c1_inputs(gen, *size, *_C1_CONVS[conv_name])
+    before = conv.LAUNCHES["conv3x3"]
+    got = conv.conv3x3(x, wt, b, **kw)
+    assert conv.LAUNCHES["conv3x3"] == before + 1
+    assert got.shape == (*size, wt.shape[0]) and got.is_contiguous()
+    assert not torch.backends.cudnn.allow_tf32
+    assert (got - _c1_plain(x, wt, b, kw)).abs().max() <= _C1_MAX_ABS
+    want64 = _c1_plain(x, wt, b, kw, torch.float64)
+    assert (got.double() - want64).abs().max() <= _C1_MAX_ABS_F64
+
+
+@pytest.mark.parametrize("epilogue", ["none", "leaky", "residual"])
+def test_conv3x3_ragged_and_operands(gen, epilogue):
+    """Maps no tile divides, a 4-channel last K chunk (Cin 36), and the
+    432-wide output; operands made once give the bits of operands made
+    per call, and a misaligned x is copied, with the same bits."""
+    for cout in (128, 432):
+        x, wt, b, kw = _c1_inputs(gen, 2, 13, 21, 36, cout, epilogue)
+        want = conv.conv3x3(x, wt, b, **kw)
+        want64 = _c1_plain(x, wt, b, kw, torch.float64)
+        assert (want.double() - want64).abs().max() <= _C1_MAX_ABS_F64
+        ops = conv.conv_operands(wt, b)
+        assert torch.equal(conv.conv3x3(x, wt, b, operands=ops, **kw), want)
+        big = torch.empty(x.numel() + 1, device="cuda")
+        xm = big[1:].view(x.shape).copy_(x)
+        assert xm.data_ptr() % 16
+        assert torch.equal(conv.conv3x3(xm, wt, b, **kw), want)
+
+
+def test_conv3x3_does_not_synchronize(gen):
+    """Making C1's operands and launching it never waits for the device
+    (no host index tensor is uploaded): feat_prop makes 12 operand sets a
+    window batch."""
+    x, wt, b, kw = _c1_inputs(gen, 1, 5, 7, 388, 128, "leaky")
+    conv.conv3x3(x, wt, b, **kw)                 # the library is loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops = conv.conv_operands(wt, b)
+        conv.conv3x3(x, wt, b, operands=ops, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_conv3x3_refuses_what_it_does_not_take(gen):
+    """bfloat16 and shapes outside the contract raise ValueError for CUDA
+    tensors too: no fallback to cuDNN."""
+    x, wt, b, _ = _c1_inputs(gen, 1, 5, 7, 64, 128, "none")
+    before = conv.LAUNCHES["conv3x3"]
+    for bad in ((x.bfloat16(), wt.bfloat16(), b.bfloat16()),
+                (x, wt[:96], b[:96]), (x[..., :62].contiguous(),
+                                       wt[:, :62].contiguous(), b),
+                (x.transpose(1, 2).contiguous().transpose(1, 2), wt, b)):
+        with pytest.raises(ValueError):
+            conv.conv3x3(*bad)
+    with pytest.raises(ValueError):
+        conv.conv3x3(x, wt, b, stride=2)
+    with pytest.raises(ValueError, match="device"):
+        conv.conv3x3(x, wt, b, operands=conv.conv_operands(wt.cpu(), b.cpu()))
+    assert conv.LAUNCHES["conv3x3"] == before
+
+
+def test_feat_prop_launches_c1_in_float32_only(gen):
+    """bidirectional_propagation on the card: in float32 every 3x3
+    convolution of the offset head and the backbone is one C1 launch (per
+    direction 2 at the first step and 6 at each after it); in bfloat16
+    none, and the float32 result is the plain chain's within C1's bars."""
+    from e2fgvi_tpu_torch.models import feat_prop
+    torch.manual_seed(0)
+    module = feat_prop.FeatPropModule(128, 16).cuda()
+    b, t, h, w = 1, 4, 12, 20
+    x = _randn(gen, b, t, h, w, 128)
+    fb, ff = _randn(gen, b, t - 1, h, w, 2), _randn(gen, b, t - 1, h, w, 2)
+    with torch.no_grad():
+        before = conv.LAUNCHES["conv3x3"]
+        got = feat_prop.bidirectional_propagation(module, x, fb, ff)
+        assert conv.LAUNCHES["conv3x3"] == before + 2 * (2 + 6 * (t - 1))
+        m16 = feat_prop.FeatPropModule(128, 16).cuda().bfloat16()
+        m16.load_state_dict(module.state_dict())
+        before = conv.LAUNCHES["conv3x3"]
+        feat_prop.bidirectional_propagation(m16, x.bfloat16(), fb, ff)
+        assert conv.LAUNCHES["conv3x3"] == before
+    assert torch.isfinite(got).all()
+
+
+def test_conv3x3_function_gives_the_plain_gradients(gen):
+    """C1 through its autograd Function: one launch forward, the kernel's
+    output, and the plain version's VJP in x, the weight, the bias and the
+    residual (cuDNN's float32 backward, recomputed from the saved
+    inputs)."""
+    x, wt, b, kw = _c1_inputs(gen, 2, 9, 13, 64, 128, "residual")
+    r = kw["residual"]
+    ct = _randn(gen, 2, 9, 13, 128)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, wt, b, r)]
+    before = conv.LAUNCHES["conv3x3"]
+    out = conv.conv3x3(leaves[0], leaves[1], leaves[2], residual=leaves[3])
+    assert conv.LAUNCHES["conv3x3"] == before + 1
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), conv.conv3x3(x, wt, b, residual=r))
+    out.backward(ct)
+    want = _grads(lambda *a: conv.conv3x3_plain(*a), (x, wt, b, r), ct)
+    for t, w_ in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w_, rtol=1e-5, atol=1e-5)
+
+
+def test_conv3x3_refuses_grad(gen):
+    """A bare launch refuses an input that requires grad and names the
+    autograd Functions; the wrapper takes it through Conv3x3, and with
+    grad mode off launches directly, and so refuses it too."""
+    x, wt, b, _ = _c1_inputs(gen, 1, 4, 5, 32, 128, "none")
+    xg = x.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only.*autograd"):
+        conv.conv3x3_kernel(xg, wt, b)
+    assert conv.conv3x3(xg, wt, b).grad_fn is not None
+    with torch.no_grad():
+        assert conv.conv3x3(x, wt, b).grad_fn is None
+        with pytest.raises(RuntimeError, match="forward-only"):
+            conv.conv3x3(xg, wt, b)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from e2fgvi_tpu.utils import visualize as jvisualize
+from e2fgvi_tpu_torch.kernels import conv
 from e2fgvi_tpu_torch.utils import profiling, timing, visualize
 
 
@@ -150,6 +151,7 @@ def test_stage_timer_without_cuda_counts_nothing(host_clock, monkeypatch):
 
 def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
     cuda = FakeCuda(monkeypatch, mode=1)
+    monkeypatch.setitem(conv.LAUNCHES, "conv3x3", 0)
     t = timing.StageTimer()
     with t.video(torch.device("cpu")):
         assert cuda.set_calls == ["warn"]
@@ -159,6 +161,7 @@ def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
         cuda.sync()
         cuda.sync()
         cuda.allocs += 3
+        conv.LAUNCHES["conv3x3"] += 2
         with pytest.warns(DeprecationWarning, match="passed on"):
             warnings.warn("passed on", DeprecationWarning)
         t.end("prep")
@@ -174,4 +177,6 @@ def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
         "host_syncs": 5, "host_syncs.encode": 2, "host_syncs.prep": 2,
         "host_syncs.flows": 0, "device_alloc_calls": 4,
         "device_alloc_calls.encode": 0, "device_alloc_calls.prep": 3,
-        "device_alloc_calls.flows": 1}
+        "device_alloc_calls.flows": 1, "conv_launches": 2,
+        "conv_launches.encode": 0, "conv_launches.prep": 2,
+        "conv_launches.flows": 0}
