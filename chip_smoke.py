@@ -85,6 +85,17 @@ Phases, one line each (any failed check raises and exits nonzero):
               path on the CPU, one 20-frame 1280x720 video (mirror-padded
               to 1296x720), and one 20-frame 864x480 video at the CLI's
               defaults (float32, max_batch 4)
+  7b. propainter  K1's 8-channels-a-group form (Cin 128, 16 groups, K
+              1152, max_residue 3) at B on 120x212 maps and K3 on the
+              flagged rows of a sparse attention layer at B on the 40x71
+              token grid over 20 frames (17 of 64 windows flagged an
+              element; inputs captured from the layer, ~3.7k keys a row),
+              both dtypes, against their plain versions with bounds,
+              K1's gemm_ms and peak, K3's SDPA time; ProPainter serving
+              (generator bfloat16, RAFT float32, max_batch 14) on 2
+              synthetic 40-frame 848x480 videos under a moving ellipse,
+              seeded weights: launch counts reset just before, the share
+              of flagged rows, frames/s, stage split, peak memory
   8. evaluate the evaluate entry point (float32) on a synthetic DAVIS-layout
               set of 3 videos of 24 frames with a seeded I3D: PSNR/SSIM in
               range, a finite VFID from I3D on the card, the metrics file,
@@ -139,6 +150,8 @@ B, H, W = 14, 60, 108          # serving: windows per batch, quarter-res map
 TRAIN_STEPS, TRAIN_VIDEOS = 4, 8
 HQ_MAP = (120, 216)            # the HQ model's quarter-res map at 864x480
 HQ720_MAP = (180, 324)         # ... at 1280x720, mirror-padded to 1296x720
+PROPAINTER_MAP = (120, 212)    # ProPainter's quarter-res map at 848x480
+PROPAINTER_TOKENS = (40, 71)   # ... and its token grid
 # float32 (rtol, atol) against the plain version; bfloat16 max error
 # relative to the float32 plain result's scale. The gathers are exact; the
 # banded samplers and E4 sum the plain version's terms in its order; the
@@ -555,16 +568,6 @@ def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16"),
         x, head, wt, bias = (v.to(dt) for v in k1_base)
         return x, head, flow1, flow2, wt, bias
 
-    def k1_bound(args, out, tf32=False):
-        # the im2col GEMM on the tensor cores (float32: without them, or as
-        # three TF32 products) beside the sampler's ~9 float32 operations
-        # per im2col element
-        x, wt = args[0], args[4]
-        cols = (out.numel() // out.shape[-1]) * wt[0].numel()
-        return roofline(args, [out], [gemm_ops(2 * cols * out.shape[-1], x,
-                                               tf32),
-                                      (9 * cols, PEAK_FLOPS["float32"])])
-
     res = {}
     # no single PyTorch call computes a modulated deformable convolution
     res["deform_conv"] = compare(
@@ -599,6 +602,17 @@ def check_k1k2(dev, b, h, w, timed=True, dtypes=("float32", "bfloat16"),
                                deform.flow_warp_plain(fimg, flow2),
                                rtol=1e-5, atol=1e-4)
     return res
+
+
+def k1_bound(args, out, tf32=False):
+    """K1's bound: the im2col GEMM on the tensor cores (float32: without
+    them, or as three TF32 products) beside the sampler's ~9 float32
+    operations per im2col element."""
+    x, wt = args[0], args[4]
+    cols = (out.numel() // out.shape[-1]) * wt[0].numel()
+    return roofline(args, [out], [gemm_ops(2 * cols * out.shape[-1], x,
+                                           tf32),
+                                  (9 * cols, PEAK_FLOPS["float32"])])
 
 
 def k1_one_tf32_pass(x, head, f1, f2, wt, bias):
@@ -956,6 +970,191 @@ def check_hq_kernels(dev):
     res["864x480"]["focal_attention"]["first_frame_only"] = first
     torch.cuda.empty_cache()
     return res
+
+
+def sparse_rows(flags, n_local, nv, nr, dev):
+    """propainter.SparseRows of a window batch from (B, nwin) bool flags,
+    every window with nv locals and nr references."""
+    import torch
+    from e2fgvi_tpu_torch.models import propainter
+    b, nwin = flags.shape
+    rows = np.arange(b * nwin).reshape(b, nwin)
+    kfs, kvs = [], []
+    for par in range(propainter.T_DILATION):
+        k = propainter.key_frames(nv, nr, n_local, par)
+        kf = torch.tensor([k] * int(flags.sum()), dtype=torch.long,
+                          device=dev).reshape(int(flags.sum()), len(k))
+        kfs.append(kf)
+        kvs.append(torch.ones_like(kf, dtype=torch.bool))
+    return propainter.SparseRows(
+        torch.as_tensor(rows[flags], device=dev),
+        torch.as_tensor(rows[~flags], device=dev), tuple(kfs), tuple(kvs))
+
+
+def check_propainter_kernels(dev, t=20, n_local=11, flagged=17):
+    """K1 and K3 as ProPainter's serving at 848x480 runs them, against
+    their plain versions in both dtypes.
+
+    K1: its 8-channels-a-group form (Cin 128, G 16, K 1152, flow_2 =
+    flow_1, max_residue 3) at batch B on 120x212 maps. K3: the flagged
+    rows of one sparse attention layer at batch B on the 40x71 token grid
+    (64 windows once padded to 40x72) over t frames (n_local locals, then
+    references), `flagged` of each element's 64 windows flagged, each
+    element others; K3's inputs are those sparse_attention hands it (the
+    queries of all t frames, the keys of the parity-1 key frames over the
+    deduplicated key table), captured from the layer itself in each
+    dtype; the plain version runs 16 rows at a time."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import deform
+    from e2fgvi_tpu_torch.kernels import focal_attention as fa
+    from e2fgvi_tpu_torch.models import propainter
+    randn = _randn_fn(dev)
+    h, w = PROPAINTER_MAP
+    flow = randn(B, h, w, 2, std=3.0)
+    flow[:, :4, :, 1] -= 40.0
+    base = (randn(B, h, w, 128), randn(B, h, w, 27 * 16),
+            randn(128, 128, 3, 3, std=0.03), randn(128, std=0.1))
+
+    def k1_inputs(dt):
+        x, head, wt, bias = (v.to(dt) for v in base)
+        return x, head, flow, flow, wt, bias
+
+    res = {"deform_conv": compare(
+        "deform_conv",
+        lambda *a: deform.modulated_deform_conv2d_head(*a, max_residue=3.0),
+        lambda *a: deform.deform_conv_head_plain(*a, 3.0), k1_inputs,
+        bound_fn=k1_bound,
+        tf32_bound_fn=lambda a, out: k1_bound(a, out, True))}
+    res["deform_conv"].update(k1_gemm_and_peak(
+        k1_inputs, ("float32", "bfloat16"), B * h * w))
+    res["deform_conv"]["shape"] = [B, h, w, 128]
+    del base, flow
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(0)
+    attn = propainter.SparseWindowAttention()
+    for m in (attn.key, attn.query, attn.value, attn.proj):
+        torch.nn.init.normal_(m.weight, std=512 ** -0.5)
+    attn = attn.to(dev)
+    lh, lw = PROPAINTER_TOKENS
+    ph, pw = propainter.padded_grid(lh, lw)
+    nwin = (ph // propainter.WINDOW[0]) * (pw // propainter.WINDOW[1])
+    flags = np.zeros((B, nwin), bool)
+    for i in range(B):
+        flags[i, (5 * i + np.arange(min(flagged, nwin - 1))) % nwin] = True
+    rows = sparse_rows(flags, n_local, n_local, t - n_local, dev)
+    x = randn(B, t, lh, lw, 512)
+    captured, orig = {}, propainter.focal_attention
+
+    def capture(*args):
+        captured[args[0].dtype] = args
+        return orig(*args)
+
+    propainter.focal_attention = capture
+    try:
+        with torch.inference_mode():
+            for dt in (torch.float32, torch.bfloat16):
+                propainter.sparse_attention(attn.to(dt), x.to(dt), rows, 1)
+    finally:
+        propainter.focal_attention = orig
+    del x, attn
+    torch.cuda.empty_cache()
+    q, k = captured[torch.float32][:2]
+    r = captured[torch.float32][4]
+
+    def k3_rows(args):
+        q, k, v, bias, r, heads = args
+        n = 16
+        return [(q[i * heads:(i + n) * heads], k[i * heads:(i + n) * heads],
+                 v[i * heads:(i + n) * heads], bias[i:i + n],
+                 min(n, r - i), heads) for i in range(0, r, n)]
+
+    res["focal_attention"] = {
+        "rows": r, "rows_share": r / (B * nwin), "T": t,
+        "queries": q.shape[1], "keys": k.shape[1],
+        **compare("focal_attention", fa.focal_attention,
+                  fa.focal_attention_plain, lambda dt: captured[dt],
+                  bound_fn=k3_bound, library_fn=k3_library,
+                  tf32_bound_fn=lambda a, out: k3_bound(a, out, True),
+                  plain_chunks=k3_rows)}
+    del captured, q, k
+    torch.cuda.empty_cache()
+    return res
+
+
+def propainter_models(dev, seed=0):
+    """ProPainter's generator (bfloat16) and RAFT (float32) on the card
+    with seeded weights: PyTorch's default initialization, every
+    convolution's weight drawn again at std 0.5 / sqrt(fan-in), and the
+    deformable alignments' weights (zeros by default) at std 0.02."""
+    import torch
+    from e2fgvi_tpu_torch.models import propainter, raft
+    torch.manual_seed(seed)
+    g, r = propainter.Generator(), raft.RAFT()
+    for mod in list(g.modules()) + list(r.modules()):
+        if isinstance(mod, torch.nn.Conv2d):
+            torch.nn.init.normal_(mod.weight, std=0.5 / np.sqrt(
+                mod.weight[0].numel()))
+    for a in g.feat_prop_module.deform_align.values():
+        torch.nn.init.normal_(a.weight, std=0.02)
+    return (g.to(dev).to(torch.bfloat16).eval(),
+            r.to(dev).float().eval())
+
+
+def serve_propainter(dev, n_videos=2, t=40, h=480, w=848,
+                     ellipse=(200, 150, 150, 100)):
+    """ProPainter serving: SlidingWindowInpainter (generator bfloat16,
+    RAFT float32, max_batch B, uint8 out) on synthetic t-frame h x w
+    videos, each masked by an ellipse (centre x, y and semi-axes:
+    `ellipse`) moving (4, 2) px a frame, launch counts reset just before. Returns the runs (with the share of
+    window rows that took the flagged attention) and the launch counts."""
+    import torch
+    from e2fgvi_tpu_torch.data.pipeline import SlidingWindowInpainter
+    from e2fgvi_tpu_torch.utils.timing import StageTimer
+    g, r = propainter_models(dev)
+    inpainter = SlidingWindowInpainter(
+        g, max_batch=B, dtype=torch.bfloat16, out_dtype=np.uint8,
+        device=dev, flow_model=r)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cx, cy, ax, ay = ellipse
+    videos = []
+    for seed in range(1, n_videos + 1):
+        frames, _ = synth_video(seed, t, h, w)
+        masks = np.stack([((xx - cx - 4 * i) / ax) ** 2
+                          + ((yy - cy - 2 * i) / ay) ** 2 <= 1.0
+                          for i in range(t)])[..., None].astype(np.uint8)
+        videos.append((frames, masks))
+    reset_launch_counts()
+    runs = []
+    for frames, masks in videos:
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        comp = inpainter(frames, masks.astype(np.float32), frames, masks,
+                         timer=timer)
+        dt = time.perf_counter() - t0
+        totals = timer.totals()
+        comp = np.stack(comp)
+        if comp.shape != frames.shape or comp.dtype != np.uint8:
+            raise AssertionError(f"bad output {comp.shape} {comp.dtype}")
+        outside = masks[..., 0] == 0
+        if not np.array_equal(comp[outside], frames[outside]):
+            raise AssertionError("output differs outside the mask")
+        flagged = totals.get("attn_rows_flagged", 0)
+        frame = totals.get("attn_rows_frame", 0)
+        if not 0 < flagged < flagged + frame:
+            raise AssertionError(f"attention rows: {flagged} flagged, "
+                                 f"{frame} frame")
+        stages = {k: v for k, v in totals.items()
+                  if not k.startswith(("attn_rows", "raft_iterations"))}
+        runs.append({"seconds": dt, "fps": t / dt, "stages_ms": stages,
+                     "flagged_share": flagged / (flagged + frame)})
+    counts = launch_counts()
+    # the generator runs in bfloat16: C1 (float32 only) is bypassed
+    if not all(counts[k] > 0 for k in SERVING_NAMES) or counts["conv3x3"]:
+        raise AssertionError(f"ProPainter serving launches {counts}")
+    del inpainter, g, r
+    torch.cuda.empty_cache()
+    return runs, counts
 
 
 def write_davis(root, n_videos, t, h, w, seed=0):
@@ -2213,6 +2412,20 @@ def main():
     torch.cuda.empty_cache()
     t0 = phase_end("hq", t0)
 
+    # 7b. propainter: K1's 8-channels-a-group form and K3 on the flagged
+    # rows at ProPainter's 848x480 shapes; ProPainter serving there
+    pres = check_propainter_kernels(dev)
+    for name, r in pres.items():
+        log(f"propainter kernel {name}: " + json.dumps(r))
+    torch.cuda.reset_peak_memory_stats()
+    pruns, pcounts = serve_propainter(dev)
+    log_runs("propainter serving 848x480", pruns)
+    log(f"propainter serving launches {json.dumps(pcounts)}, flagged rows "
+        + ", ".join(f"{r['flagged_share']:.3f}" for r in pruns)
+        + f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+    t0 = phase_end("propainter", t0)
+
     # 8. evaluate: the benchmark-evaluation entry point with VFID
     with tempfile.TemporaryDirectory() as tmp:
         eval_res, vcounts = run_evaluate(dev, tmp)
@@ -2294,6 +2507,12 @@ def main():
             entry["hq"] = {label: {k: v for k, v in hres[label][name].items()
                                    if k in hq_keys}
                            for label in hres}
+            entry["launches_propainter"] = pcounts[name]
+        if name in pres:              # ProPainter's shapes (phase 7b)
+            entry["propainter"] = {
+                k: v for k, v in pres[name].items()
+                if k in (*hq_keys, "shape", "rows", "rows_share", "T",
+                         "queries", "keys")}
         kernels.append(entry)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -4,13 +4,17 @@ Counterpart of e2fgvi_tpu/cli/inpaint.py: a frame directory or .mp4 in, a
 per-frame mask directory, the neighbor/reference window flags, an .mp4
 out. A reference checkpoint (.pth) loads into the port as it is, with
 load_state_dict (no converter). The base model runs at 432x240; the HQ
-model (--model e2fgvi_hq) at --width x --height with --set_size, else at
-the video's own size.
+model (--model e2fgvi_hq) and ProPainter (--model propainter, with its
+RAFT from --raft_ckpt) at --width x --height with --set_size, else at the
+video's own size (ProPainter mirror-pads it to multiples of 8).
 
     python -m e2fgvi_tpu_torch.cli.inpaint -v examples/tennis \
         -m examples/tennis_mask -c E2FGVI-CVPR22.pth --dtype bfloat16
     python -m e2fgvi_tpu_torch.cli.inpaint -v examples/hqtest \
         -m examples/hqtest_mask -c E2FGVI-HQ-CVPR22.pth --model e2fgvi_hq
+    python -m e2fgvi_tpu_torch.cli.inpaint -v examples/hqtest \
+        -m examples/hqtest_mask -c ProPainter.pth --raft_ckpt \
+        raft-things.pth --model propainter --dtype bfloat16
 """
 
 import argparse
@@ -33,7 +37,9 @@ def build_parser():
     p.add_argument("-m", "--mask", type=str, required=True,
                    help="directory of per-frame masks")
     p.add_argument("--model", type=str, default="e2fgvi",
-                   choices=["e2fgvi", "e2fgvi_hq"])
+                   choices=["e2fgvi", "e2fgvi_hq", "propainter"])
+    p.add_argument("--raft_ckpt", type=str, default=None,
+                   help="raft-things .pth (ProPainter's flows)")
     p.add_argument("--step", type=int, default=10, help="ref-frame stride")
     p.add_argument("--num_ref", type=int, default=-1)
     p.add_argument("--neighbor_stride", type=int, default=5)
@@ -99,6 +105,35 @@ def frame_size(args):
     return None
 
 
+def _state_dict(path):
+    """A .pth's state dict, without a `state_dict` wrapper or the
+    `module.` prefix of a DataParallel save."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def load_propainter(args, device):
+    """ProPainter's generator in args.dtype and its RAFT in float32, on
+    `device`: seeded random weights with args.random_weights, else
+    args.ckpt and args.raft_ckpt. Returns (generator, raft, dtype)."""
+    from e2fgvi_tpu_torch.models import propainter, raft
+    g, r = propainter.Generator(), raft.RAFT()
+    if args.random_weights:
+        gen = torch.Generator().manual_seed(0)
+        for m in (g, r):
+            propainter.init_weights(m, gen)
+    else:
+        if args.raft_ckpt is None:
+            raise SystemExit("--model propainter needs --raft_ckpt")
+        g.load_state_dict(_state_dict(args.ckpt), strict=True)
+        r.load_state_dict(_state_dict(args.raft_ckpt), strict=True)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    return (g.to(device=device, dtype=dtype).eval(),
+            r.to(device=device).eval(), dtype)
+
+
 def load_model(args, device):
     """The generator of args.model on `device` in args.dtype: seeded random
     weights with args.random_weights, else the reference .pth at
@@ -134,11 +169,15 @@ def main(argv=None):
     print(f"Loading masks from {args.mask} ...")
     binary = np.stack(readers.read_masks_from_dir(args.mask, size))[..., None]
 
-    model, dtype = load_model(args, device)
+    flow_model = None
+    if args.model == "propainter":
+        model, flow_model, dtype = load_propainter(args, device)
+    else:
+        model, dtype = load_model(args, device)
     runner = SlidingWindowInpainter(
         model, neighbor_stride=args.neighbor_stride, ref_length=args.step,
         num_ref=args.num_ref, max_batch=args.max_batch, dtype=dtype,
-        out_dtype=np.uint8, device=device)
+        out_dtype=np.uint8, device=device, flow_model=flow_model)
 
     print(f"Inpainting {video_length} frames at {size[0]}x{size[1]} "
           f"on {device} ...")

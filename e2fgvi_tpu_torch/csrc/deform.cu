@@ -341,6 +341,11 @@ __device__ __forceinline__ float hi_bf16(unsigned w) {
   return __uint_as_float(w & 0xFFFF0000u);
 }
 
+// CG, the channels a group: 16 (a slice is one k16 step; lanes l and
+// l + 16 take its two 8-channel halves) or 8 (a slice is half a k16 step;
+// lane l takes the even slices of a chunk, lane l + 16 the odd ones, 8
+// channels each, so a thread samples 4 slices either way)
+template <int CG>
 __global__ void __launch_bounds__(kThreads, 1)
 deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                          const __grid_constant__ Params p) {
@@ -381,12 +386,14 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   const int t = tid & 127;
   const int warp = t >> 5, lane = t & 31;
   // this thread's A row in the tile, and its channels 8e .. 8e + 7 of
-  // every slice (lanes l and l + 16 share a row)
+  // every slice (CG 16) or its slices of parity e (CG 8); lanes l and
+  // l + 16 share a row
   const int row = c * 64 + warp * 16 + (lane & 15);
   const int e = lane >> 4;
   const int m = m0 + row;
   const bool live = m < p.M;
   const int GK = p.G * p.K;
+  constexpr int kHeadWords = CG == 16 ? 6 : 12;
 
   // the pixel's coordinates, flows, head row and image
   int n = 0, oy = 0, ox = 0;
@@ -402,42 +409,52 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     f1 = __ldg(reinterpret_cast<const float2*>(p.flow1) + m);
     f2 = __ldg(reinterpret_cast<const float2*>(p.flow2) + m);
     hp = p.head + (long long)m * 3 * GK;
-    img = p.x + (long long)n * p.H * p.W * p.Cin + 8 * e;
+    img = p.x + (long long)n * p.H * p.W * p.Cin + (CG == 16 ? 8 * e : 0);
   }
   const uint32_t a_row = row * 128;
   const int sw = row & 7;
 
-  // the head values of chunk q's slices 4q .. 4q + 3: h[s] their (dy, dx),
-  // h[4 + s/2] their mask logits, two a word
-  auto load_head = [&](int chunk, unsigned (&h)[6]) {
+  // CG 16: the head values of chunk q's slices 4q .. 4q + 3: h[s] their
+  // (dy, dx), h[4 + s/2] their mask logits, two a word. CG 8: of its
+  // slices 8q .. 8q + 7: h[j] slice j's (dy, dx), h[8 + j/2] the logits
+  auto load_head = [&](int chunk, unsigned (&h)[kHeadWords]) {
     if (live && chunk < p.chunks) {
-      load_words<8>(hp + 8 * chunk, h);
-      load_words<8>(hp + 8 * chunk + 4, h + 2);
-      load_words<8>(hp + 2 * GK + 4 * chunk, h + 4);
+      if constexpr (CG == 16) {
+        load_words<8>(hp + 8 * chunk, h);
+        load_words<8>(hp + 8 * chunk + 4, h + 2);
+        load_words<8>(hp + 2 * GK + 4 * chunk, h + 4);
+      } else {
+        load_words<16>(hp + 16 * chunk, h);
+        load_words<16>(hp + 16 * chunk + 8, h + 4);
+        load_words<16>(hp + 2 * GK + 8 * chunk, h + 8);
+      }
     }
   };
   // chunk `chunk` of this thread's row and channel half into an A stage
-  auto sample = [&](int chunk, const unsigned (&h)[6], uint32_t stage) {
+  auto sample = [&](int chunk, const unsigned (&h)[kHeadWords],
+                    uint32_t stage) {
     uint4 v[4];
     if (live) {
       Corners cr[4];
       float mk[4];
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
-        const int q = 4 * chunk + s;
+        // slice q of the K axis; j its index in the chunk
+        const int j = CG == 16 ? s : 2 * s + e;
+        const int q = (kBK / CG) * chunk + j;
         const int g = q / p.K;
         const int k = q - g * p.K;
         const int ky = k / p.kw;
         const float2 fl = g < p.G / 2 ? f1 : f2;
-        const unsigned lw = h[4 + s / 2];
-        const Sample sm = sample_at(lo_bf16(h[s]), hi_bf16(h[s]),
-                                    (s & 1) ? hi_bf16(lw) : lo_bf16(lw),
+        const unsigned lw = h[(CG == 16 ? 4 : 8) + j / 2];
+        const Sample sm = sample_at(lo_bf16(h[j]), hi_bf16(h[j]),
+                                    (j & 1) ? hi_bf16(lw) : lo_bf16(lw),
                                     fl.x, fl.y, oy, ox, ky, k - ky * p.kw,
                                     p.pad, p.max_residue);
         mk[s] = sm.m;
         cr[s] = corners_of(p.H, p.W, p.Cin, sm.py, sm.px, 1.f);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cr[s].off[i] += g * kCG;
+        for (int i = 0; i < 4; ++i) cr[s].off[i] += g * CG;
       }
       float acc[4][8];
 #pragma unroll
@@ -458,7 +475,9 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     }
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      const int j = 2 * s + e;                // 16-byte chunk of the row
+      // 16-byte chunk of the row: half e of slice s (CG 16), slice 2s + e
+      // (CG 8)
+      const int j = 2 * s + e;
       st_shared_v4(stage + a_row + ((j ^ sw) << 4), v[s]);
     }
   };
@@ -470,7 +489,7 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  unsigned h_cur[6], h_next[6];
+  unsigned h_cur[kHeadWords], h_next[kHeadWords];
   load_head(0, h_cur);
   load_head(1, h_next);
   sample(0, h_cur, sA);
@@ -492,7 +511,7 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
       // chunk i - 1's products are done: its A stage takes chunk i + 1,
       // its B stage goes back to the producer
 #pragma unroll
-      for (int w = 0; w < 6; ++w) h_cur[w] = h_next[w];
+      for (int w = 0; w < kHeadWords; ++w) h_cur[w] = h_next[w];
       load_head(i + 2, h_next);
       wg_wait<1>();
       fence_regs(acc);
@@ -522,14 +541,15 @@ deform_conv_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
-// wk: the weight as (Cout, G*K*16) bf16, K-major, column (g*K + k)*16 + c
-int launch(Params prm, const void* wk, cudaStream_t stream) {
+// wk: the weight as (Cout, G*K*CG) bf16, K-major, column (g*K + k)*CG + c
+template <int CG>
+int launch_cg(Params prm, const void* wk, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      deform_conv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      deform_conv_wgmma_kernel<CG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const int ktot = prm.G * prm.K * kCG;
-  if (prm.Cin != prm.G * kCG || ktot % kBK != 0)
+  const int ktot = prm.G * prm.K * CG;
+  if (prm.Cin != prm.G * CG || ktot % kBK != 0)
     return (int)cudaErrorInvalidValue;
   prm.chunks = ktot / kBK;
   if (prm.M == 0) return (int)cudaGetLastError();
@@ -541,9 +561,14 @@ int launch(Params prm, const void* wk, cudaStream_t stream) {
   if (!hopper::encode_sw128(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wk, dims,
                            strides, box))
     return (int)cudaErrorInvalidValue;
-  deform_conv_wgmma_kernel<<<blocks_for(prm.M, kBM), kThreads, kSmemBytes,
-                             stream>>>(wmap, prm);
+  deform_conv_wgmma_kernel<CG><<<blocks_for(prm.M, kBM), kThreads,
+                                 kSmemBytes, stream>>>(wmap, prm);
   return (int)cudaGetLastError();
+}
+
+int launch(Params prm, const void* wk, cudaStream_t stream) {
+  if (prm.Cin == prm.G * 8) return launch_cg<8>(prm, wk, stream);
+  return launch_cg<kCG>(prm, wk, stream);
 }
 
 }  // namespace fused
@@ -626,6 +651,11 @@ constexpr int kSmemBytes = kBarOff + 8 * 2 * kBStages + 1024;
 
 using Params = ConvParams<float>;
 
+// CG, the channels a group: 16 (a chunk is 2 slices; lanes l and l + 16
+// take channels 4e .. 4e + 3 and 8 + 4e .. of both) or 8 (a chunk is 4
+// slices; lane l takes slices 0 and 2, lane l + 16 slices 1 and 3, all 8
+// channels of each)
+template <int CG>
 __global__ void __launch_bounds__(kThreads, 1)
 deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ Params p) {
@@ -677,18 +707,26 @@ deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
     f1 = __ldg(reinterpret_cast<const float2*>(p.flow1) + m);
     f2 = __ldg(reinterpret_cast<const float2*>(p.flow2) + m);
     hp = p.head + (long long)m * 3 * GK;
-    img = p.x + (long long)n * p.H * p.W * p.Cin + 4 * e;
+    img = p.x + (long long)n * p.H * p.W * p.Cin + (CG == 16 ? 4 * e : 0);
   }
   const uint32_t a_row = row * 128;
   const int sw = row & 7;
 
   // the head values of chunk q's slices 2q, 2q + 1: h[2s], h[2s + 1] the
   // (dy, dx) of slice s, h[4 + s] its mask logit
+  // (CG 8: this thread's slices 4q + e and 4q + 2 + e, likewise)
   auto load_head = [&](int chunk, unsigned (&h)[6]) {
     if (live && chunk < p.chunks) {
-      load_words<8>(hp + 4 * chunk, h);
-      load_words<8>(hp + 4 * chunk + 2, h + 2);
-      load_words<8>(hp + 2 * GK + 2 * chunk, h + 4);
+      if constexpr (CG == 16) {
+        load_words<8>(hp + 4 * chunk, h);
+        load_words<8>(hp + 4 * chunk + 2, h + 2);
+        load_words<8>(hp + 2 * GK + 2 * chunk, h + 4);
+      } else {
+        load_words<8>(hp + 8 * chunk + 2 * e, h);
+        load_words<8>(hp + 8 * chunk + 4 + 2 * e, h + 2);
+        load_words<4>(hp + 2 * GK + 4 * chunk + e, h + 4);
+        load_words<4>(hp + 2 * GK + 4 * chunk + 2 + e, h + 5);
+      }
     }
   };
   // chunk `chunk` of this thread's row and channels into an A stage: big
@@ -706,7 +744,7 @@ deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
       float cw[2][4], mk[2];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        const int q = 2 * chunk + s;
+        const int q = CG == 16 ? 2 * chunk + s : 4 * chunk + 2 * s + e;
         const int g = q / p.K;
         const int k = q - g * p.K;
         const int ky = k / p.kw;
@@ -719,7 +757,7 @@ deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
         const Corners cr = corners_of(p.H, p.W, p.Cin, sm.py, sm.px, 1.f);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          off[s][i] = (int)cr.off[i] + g * kCG;
+          off[s][i] = (int)cr.off[i] + g * CG;
           cw[s][i] = cr.w[i];
         }
       }
@@ -733,7 +771,8 @@ deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
           if (cw[s][i] != 0.f) {
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf)
-              load_words<16>(img + off[s][i] + 8 * hf, w[s][i][hf]);
+              load_words<16>(img + off[s][i] + (CG == 16 ? 8 : 4) * hf,
+                             w[s][i][hf]);
           }
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
@@ -755,8 +794,10 @@ deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
         const float* a = v[s] + 4 * hf;
         const Split x0 = split(a[0]), x1 = split(a[1]), x2 = split(a[2]),
                     x3 = split(a[3]);
-        // 16-byte chunk j of the row: slice s's bytes 32 hf + 16 e
-        const uint32_t at = a_row + (((4 * s + 2 * hf + e) ^ sw) << 4);
+        // 16-byte chunk j of the row: slice s's bytes 32 hf + 16 e (CG
+        // 16), slice 2s + e's bytes 16 hf (CG 8)
+        const int j = CG == 16 ? 4 * s + 2 * hf + e : 4 * s + 2 * e + hf;
+        const uint32_t at = a_row + ((j ^ sw) << 4);
         st_shared_v4(stage + at, make_uint4(x0.big, x1.big, x2.big, x3.big));
         st_shared_v4(stage + kATile + at,
                      make_uint4(x0.small, x1.small, x2.small, x3.small));
@@ -840,15 +881,16 @@ deform_conv_tf32_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
-// wk: the weight as (2, Cout, G*K*16) float32, its tf32 big and small
-// parts, K-major, column (g*K + k)*16 + c
-int launch(Params prm, const void* wk, cudaStream_t stream) {
+// wk: the weight as (2, Cout, G*K*CG) float32, its tf32 big and small
+// parts, K-major, column (g*K + k)*CG + c
+template <int CG>
+int launch_cg(Params prm, const void* wk, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      deform_conv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      deform_conv_tf32_kernel<CG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const int ktot = prm.G * prm.K * kCG;
-  if (prm.Cin != prm.G * kCG || ktot % kBK != 0 ||
+  const int ktot = prm.G * prm.K * CG;
+  if (prm.Cin != prm.G * CG || ktot % kBK != 0 ||
       (long long)prm.H * prm.W * prm.Cin >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   prm.chunks = ktot / kBK;
@@ -861,9 +903,14 @@ int launch(Params prm, const void* wk, cudaStream_t stream) {
   if (!hopper::encode_sw128(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wk, dims,
                            strides, box))
     return (int)cudaErrorInvalidValue;
-  deform_conv_tf32_kernel<<<blocks_for(prm.M, kBM), kThreads, kSmemBytes,
-                            stream>>>(wmap, prm);
+  deform_conv_tf32_kernel<CG><<<blocks_for(prm.M, kBM), kThreads,
+                                kSmemBytes, stream>>>(wmap, prm);
   return (int)cudaGetLastError();
+}
+
+int launch(Params prm, const void* wk, cudaStream_t stream) {
+  if (prm.Cin == prm.G * 8) return launch_cg<8>(prm, wk, stream);
+  return launch_cg<kCG>(prm, wk, stream);
 }
 
 }  // namespace fused_tf32
@@ -952,9 +999,10 @@ void dispatch_warp(int nc, int vec, const void* x, const void* flow,
 
 // K1, sampler and contraction in one kernel: out (N*Ho*Wo, 128) of x's
 // dtype = samples x weight^T + bias. wk: the weight K-major, column
-// (g*K + k)*16 + c, as (128, G*K*16) bf16 for bfloat16 and as (2, 128,
-// G*K*16) float32 (its tf32 big and small parts) for float32; bias (128,)
-// float32; Cin = 16*G and G*K a multiple of 4 (bfloat16) or 2 (float32);
+// (g*K + k)*CG + c, as (128, G*K*CG) bf16 for bfloat16 and as (2, 128,
+// G*K*CG) float32 (its tf32 big and small parts) for float32; bias (128,)
+// float32; Cin = CG*G with CG 16 or 8, and G*K*CG a multiple of 64
+// (bfloat16) or 32 (float32);
 // x, wk and out 16-byte aligned, head, the flows and bias 8-byte aligned.
 extern "C" int e2fgvi_deform_conv(int dtype, const void* x, const void* head,
                                   const void* flow1, const void* flow2,

@@ -15,6 +15,14 @@ geometry in batches of `max_batch`:
   stage 2  SPyNet, once per adjacent pair, both directions in one batch
   stage 3  per window batch: feat_prop -> transformer -> decode
   stage 4  blend + composite on the device, one copy to the host
+
+A ProPainter generator (models/propainter.py, with its RAFT as
+`flow_model`) runs ProPainter's protocol (inference_propainter.py) through
+the same call: RAFT once per adjacent pair in each direction on the whole
+frames, image propagation per sub-video of 80 frames, the encoder once per
+frame on (updated frame, mask, updated mask), then the windows as above,
+each batch's sparse-attention rows made on the host from the masks and
+uploaded with the video's other index tables, once a video.
 """
 
 import dataclasses
@@ -23,7 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from e2fgvi_tpu_torch.models import e2fgvi
+from e2fgvi_tpu_torch.models import e2fgvi, propainter, raft, tfocal
 from e2fgvi_tpu_torch.ops.resize import resize_scale_quarter
 from e2fgvi_tpu_torch.utils import env, timing
 
@@ -31,6 +39,8 @@ from e2fgvi_tpu_torch.utils import env, timing
 # feature grid (reference test.py:156-165); any padded size then tiles into
 # whole (5, 9) attention windows, which the HQ model needs at other sizes
 PAD_MOD = (60, 108)
+# ProPainter's frames are multiples of 8 (RAFT's 1/8 grid)
+PAD_MOD_PROPAINTER = (8, 8)
 # frames per encode call (and pairs per SPyNet call): bounds how many
 # full-resolution encoder activations are live at once
 ENC_CHUNK = 35
@@ -147,23 +157,36 @@ def blend_tables(plans: list, pred_row: dict, video_length: int):
 class SlidingWindowInpainter:
     """Batched sliding-window video inpainting with cross-window reuse.
 
-    model: an e2fgvi.Generator on `device`; dtype: the compute dtype
-    (float32 or bfloat16; activations are cast to it, weights cast at each
-    op unless the model already holds that dtype); out_dtype: np.float32
-    (composites in [0, 255], the metric path) or np.uint8 (the
-    video-writing path); pad_mod: frames are mirror-padded to multiples of
-    it and the outputs cropped back."""
+    model: an e2fgvi.Generator or a propainter.Generator on `device` (its
+    `family` picks the protocol); flow_model: ProPainter's raft.RAFT, in
+    float32 (E2FGVI's SPyNet is part of its generator); dtype: the compute
+    dtype of the generator (float32 or bfloat16; activations are cast to
+    it, weights cast at each op unless the model already holds that
+    dtype); out_dtype: np.float32 (composites in [0, 255], the metric path)
+    or np.uint8 (the video-writing path); pad_mod: frames are
+    mirror-padded to multiples of it and the outputs cropped back (default
+    (60, 108) for E2FGVI, (8, 8) for ProPainter). Where `keep_flows` is
+    set, a ProPainter call leaves its RAFT flows, (forward, backward) on
+    the device cropped to the frames, in `kept_flows`; else None."""
 
     def __init__(self, model, neighbor_stride: int = 5, ref_length: int = 10,
                  num_ref: int = -1, max_batch: int = 8,
                  dtype=torch.float32, out_dtype=np.float32, device=None,
-                 pad_mod=PAD_MOD):
+                 pad_mod=None, flow_model=None):
         self.device = env.device(device)
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model is on {param.device}, the inpainter "
                              f"on {self.device}")
         self.model = model
+        self.family = getattr(model, "family", "e2fgvi")
+        if self.family == "propainter" and flow_model is None:
+            raise ValueError("a ProPainter generator needs its RAFT "
+                             "(flow_model)")
+        self.flow_model = flow_model
+        if pad_mod is None:
+            pad_mod = (PAD_MOD_PROPAINTER if self.family == "propainter"
+                       else PAD_MOD)
         self.neighbor_stride = neighbor_stride
         self.ref_length = ref_length
         self.num_ref = num_ref
@@ -171,6 +194,8 @@ class SlidingWindowInpainter:
         self.dtype = dtype
         self.out_dtype = np.dtype(out_dtype)
         self.pad_mod = tuple(pad_mod)
+        self.keep_flows = False
+        self.kept_flows = None
 
     @torch.inference_mode()
     def __call__(self, frames: np.ndarray, masks: np.ndarray,
@@ -188,14 +213,20 @@ class SlidingWindowInpainter:
         then feat_prop, transformer and decode for each window batch,
         blend and fetch (the copy back and the list of frames), inside
         the root range `inpaint.video`, and counts host_syncs and
-        device_alloc_calls where the build has CUDA. Untimed, the call
-        runs the same statements and records nothing. Returns T
-        composited (H, W, 3) frames of out_dtype."""
+        device_alloc_calls where the build has CUDA. A ProPainter call
+        records flows first (RAFT, `prep` nested in it, and in it
+        raft_corr and raft_update), then img_prop, encode and the rest as
+        above, and counts raft_iterations, attn_rows_flagged and
+        attn_rows_frame. Untimed, the call runs the same statements and
+        records nothing. Returns T composited (H, W, 3) frames of
+        out_dtype."""
+        body = (self._inpaint_propainter if self.family == "propainter"
+                else self._inpaint)
         if timer is None:
-            return self._inpaint(frames, masks, orig_frames, binary_masks,
-                                 progress, timing.NO_SPANS, None)
+            return body(frames, masks, orig_frames, binary_masks, progress,
+                        timing.NO_SPANS, None)
         with timer.video(self.device):
-            return self._inpaint(
+            return body(
                 frames, masks, orig_frames, binary_masks, progress, timer,
                 lambda done: timer.mark(done, _WINDOW_NEXT.get(done)))
 
@@ -278,8 +309,16 @@ class SlidingWindowInpainter:
             if progress is not None:
                 progress(sl.stop, len(plans))
 
-        # stage 4: overlap blend + composite on the device, one copy back;
-        # window wi's local frame li is prediction row wi * n_local + li
+        return self._blend_fetch(plans, n_local, outs, h, w, orig_frames,
+                                 binary_masks, spans)
+
+    def _blend_fetch(self, plans, n_local, outs, h, w, orig_frames,
+                     binary_masks, spans):
+        """Stage 4 (blend span open): the overlap blend and composite on
+        the device, one copy back; window wi's local frame li is
+        prediction row wi * n_local + li. Closes blend, records fetch."""
+        dev = self.device
+        video_length = orig_frames.shape[0]
         pred_row = {(wi, li): wi * n_local + li
                     for wi, p in enumerate(plans)
                     for li in range(len(p.neighbors))}
@@ -300,3 +339,170 @@ class SlidingWindowInpainter:
         out = [comp_np[i] for i in range(video_length)]
         spans.end("fetch")
         return out
+
+    def _inpaint_propainter(self, frames, masks, orig_frames, binary_masks,
+                            progress, spans, window_mark):
+        """__call__'s body for a ProPainter generator."""
+        dev, dt = self.device, self.dtype
+        model = self.model
+        spans.begin("flows")
+        spans.begin("prep")
+        video_length = frames.shape[0]
+        plans = plan_windows(video_length, self.neighbor_stride,
+                             self.ref_length, self.num_ref)
+        if frames.dtype == np.uint8:
+            frames_u8 = frames
+        else:
+            frames_u8 = np.round((frames + 1.0) / 2.0 * 255.0).astype(np.uint8)
+        frames_u8, (h, w) = mirror_pad_hw(frames_u8, *self.pad_mod)
+        masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *self.pad_mod)
+        hp, wp = frames_u8.shape[1:3]
+        lh, lw = tfocal.token_grid((hp // 4, wp // 4))
+        n_local, tables = _propainter_tables(
+            plans, masks_u8[:, ::4, ::4, 0], lh, lw, self.max_batch)
+        fr = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(dev)
+        mk = torch.from_numpy(np.ascontiguousarray(masks_u8)).to(dev)
+        packed = torch.as_tensor(tables.pop("packed"), device=dev)
+        spans.end("prep")
+
+        # RAFT once per adjacent pair, each direction, on the whole frames
+        f = fr.float() / 255.0 * 2.0 - 1.0
+        if video_length > 1:
+            flows_f, flows_b = raft.video_flows(self.flow_model, f,
+                                                spans=spans)
+        else:
+            flows_f = flows_b = f.new_zeros((0, hp, wp, 2))
+        self.kept_flows = ((flows_f[:, :h, :w], flows_b[:, :h, :w])
+                           if self.keep_flows else None)
+        spans.mark("flows", "img_prop")
+
+        # image propagation per sub-video, on the masked frames
+        m = mk.float()
+        masked = f * (1.0 - m)
+        updated, upd_masks = [], []
+        for s, e, ks, ke in propainter.subvideo_spans(video_length):
+            if e - s > 1:
+                pf, pm = propainter.image_propagation(
+                    masked[s:e], flows_f[s: e - 1], flows_b[s: e - 1],
+                    m[s:e])
+            else:
+                pf, pm = masked[s:e], m[s:e]
+            updated.append(pf[ks - s: ke - s])
+            upd_masks.append(pm[ks - s: ke - s])
+        upd = torch.cat(upd_masks)
+        updated = masked + torch.cat(updated) * m
+        spans.mark("img_prop", "encode")
+
+        # the encoder once per frame; quarter-res flows once per pair
+        feats = []
+        for s in range(0, video_length, ENC_CHUNK):
+            sl = slice(s, s + ENC_CHUNK)
+            feats.append(propainter.encode(
+                model, updated[sl].to(dt), m[sl].to(dt), upd[sl].to(dt)))
+        feat_all = torch.cat(feats, 0)
+        ds_f = propainter.downsample_flows(flows_f)
+        ds_b = propainter.downsample_flows(flows_b)
+        ds_m = torch.cat([m[:, ::4, ::4], upd[:, ::4, ::4]], -1).to(dt)
+        spans.mark("encode", "feat_prop")
+
+        # the windows, end-padded to one geometry, max_batch at a time
+        outs = []
+        for bi, s in enumerate(range(0, len(plans), self.max_batch)):
+            sl = slice(s, min(s + self.max_batch, len(plans)))
+            t_ = tables["batches"][bi]
+            view = {k: packed[o: o + n].view(shape)
+                    for k, (o, n, shape) in t_.items()}
+            b, tw = view["idx"].shape
+            feat = feat_all[view["idx"].reshape(-1)].reshape(
+                b, tw, *feat_all.shape[1:])
+            if n_local > 1:
+                pairs = view["pairs"].reshape(-1)
+                ff = ds_f[pairs].reshape(b, n_local - 1, *ds_f.shape[1:])
+                fb = ds_b[pairs].reshape(b, n_local - 1, *ds_b.shape[1:])
+            else:
+                ff = fb = ds_f.new_zeros((b, 0, *ds_f.shape[1:]))
+            lm = ds_m[view["idx"][:, :n_local].reshape(-1)].reshape(
+                b, n_local, *ds_m.shape[1:])
+            rows = propainter.SparseRows(
+                view["flagged"], view["frame"],
+                (view["kf0"], view["kf1"]),
+                (view["kv0"].bool(), view["kv1"].bool()))
+
+            def mark(done, rows=rows):
+                if window_mark is not None:
+                    window_mark(done)
+                if done == "feat_prop":         # the transformer's rows
+                    spans.count("attn_rows_flagged",
+                                propainter.DEPTHS * rows.flagged.shape[0])
+                    spans.count("attn_rows_frame",
+                                propainter.DEPTHS * rows.frame.shape[0])
+
+            out = propainter.window_stage(
+                model, feat, (ff, fb), lm, n_local, rows,
+                valid_local=view["valid"], mark=mark)
+            spans.begin("feat_prop" if sl.stop < len(plans) else "blend")
+            out = ((out.float() + 1.0) / 2.0 * 255.0).clamp(0.0, 255.0)
+            outs.append(out.to(torch.uint8).reshape(b * n_local,
+                                                    *out.shape[2:]))
+            if progress is not None:
+                progress(sl.stop, len(plans))
+        return self._blend_fetch(plans, n_local, outs, h, w, orig_frames,
+                                 binary_masks, spans)
+
+
+def _propainter_tables(plans, masks_q, lh, lw, max_batch):
+    """The index tables of every window batch of a ProPainter call, packed
+    into one int64 array for one upload: frame ids, pair ids, real local
+    counts, and the sparse-attention rows (propainter.SparseRows), which
+    the masks decide. masks_q: (T, hq, wq) {0, 1} quarter-res (nearest)
+    masks. Returns (n_local, {"packed": array, "batches": [{name:
+    (offset, size, shape)}]})."""
+    n_local, idx_all, _, _, val_all, _ = padding_tables(plans)
+    frame_flags = propainter.window_flags(masks_q, lh, lw)
+    nwin = frame_flags.shape[1]
+    parts, batches, at = [], [], 0
+
+    def put(table, name, arr):
+        nonlocal at
+        arr = np.asarray(arr, np.int64)
+        table[name] = (at, arr.size, arr.shape)
+        parts.append(arr.reshape(-1))
+        at += arr.size
+
+    for s in range(0, len(plans), max_batch):
+        ps = plans[s: s + max_batch]
+        table = {}
+        put(table, "idx", idx_all[s: s + len(ps)])
+        pairs = np.zeros((len(ps), max(n_local - 1, 1)), np.int64)
+        for i, p in enumerate(ps):
+            nv = len(p.neighbors)
+            pairs[i] = p.neighbors[0] + np.clip(
+                np.arange(pairs.shape[1]), 0, max(nv - 2, 0))
+        put(table, "pairs", pairs[:, :max(n_local - 1, 0)])
+        put(table, "valid", val_all[s: s + len(ps)])
+        flagged, frame, kfs = [], [], ([], [])
+        for i, p in enumerate(ps):
+            hit = frame_flags[p.neighbors].any(0)
+            for wi in range(nwin):
+                row = i * nwin + wi
+                if not hit[wi]:
+                    frame.append(row)
+                    continue
+                flagged.append(row)
+                for par in range(propainter.T_DILATION):
+                    kfs[par].append(propainter.key_frames(
+                        len(p.neighbors), len(p.refs), n_local, par))
+        put(table, "flagged", flagged)
+        put(table, "frame", frame)
+        for par in range(propainter.T_DILATION):
+            nf = max([len(k) for k in kfs[par]] + [1])
+            kf = np.zeros((len(kfs[par]), nf), np.int64)
+            kv = np.zeros_like(kf)
+            for j, k in enumerate(kfs[par]):
+                kf[j, :len(k)] = k
+                kv[j, :len(k)] = 1
+            put(table, f"kf{par}", kf)
+            put(table, f"kv{par}", kv)
+        batches.append(table)
+    packed = np.concatenate(parts) if parts else np.zeros(0, np.int64)
+    return n_local, {"packed": packed, "batches": batches}

@@ -38,10 +38,13 @@ from e2fgvi_tpu_torch.ops.warp import flow_warp as flow_warp_plain
 LAUNCHES = {"deform_conv": 0, "flow_warp": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# K1's contract: 16 channels a group, 128 output channels (the wgmma's n),
-# and whole K chunks of (group, tap) slices: 64 wide in bfloat16 (4 k16
-# steps), 32 in float32 (one 128-byte row of 32 floats, 4 tf32 k8 steps)
+# K1's contract: 16 channels a group (E2FGVI's second-order DCN, Cin 256)
+# or 8 (ProPainter's first-order DCN, Cin 128), 128 output channels (the
+# wgmma's n), and whole K chunks of (group, tap) slices: 64 wide in
+# bfloat16 (4 k16 steps), 32 in float32 (one 128-byte row of 32 floats, 4
+# tf32 k8 steps)
 FUSED_CG, FUSED_COUT = 16, 128
+FUSED_CGS = (16, 8)
 FUSED_CHUNK = {torch.bfloat16: 64, torch.float32: 32}
 
 
@@ -254,28 +257,30 @@ def _conv_geometry(name, x, head, flow_1, flow_2, kh, kw, padding):
 
 
 def check_fused_shapes(x, head, weight):
-    """Raise unless the fused K1 takes these shapes: Cin = 16 G (16
-    channels a group), Cout = 128 (the wgmma's n) and whole K chunks:
-    G*kh*kw a multiple of 4 in bfloat16 (64-wide chunks), even in float32
-    (32-wide); in float32 also an image of x under 2^31 elements."""
+    """Raise unless the fused K1 takes these shapes: Cin = 16 G or 8 G
+    (16 or 8 channels a group), Cout = 128 (the wgmma's n) and whole K
+    chunks: G*kh*kw*CG a multiple of 64 in bfloat16, of 32 in float32 (at
+    CG 16: G*kh*kw a multiple of 4, or even); in float32 also an image of
+    x under 2^31 elements."""
     cout, cin, kh, kw = weight.shape
     k = kh * kw
     g = head.shape[-1] // (3 * k)
     if x.shape[-1] != cin:
         raise ValueError(f"deform_conv_fused: x has {x.shape[-1]} channels, "
                          f"the weight {cin}")
-    if g == 0 or cin != FUSED_CG * g:
-        raise ValueError(f"deform_conv_fused takes Cin = {FUSED_CG} * G "
-                         f"(CG == {FUSED_CG}); got Cin={cin}, G={g}")
+    if g == 0 or cin % g or cin // g not in FUSED_CGS:
+        raise ValueError(f"deform_conv_fused takes Cin = 16 * G or 8 * G "
+                         f"(CG == 16 or 8); got Cin={cin}, G={g}")
     if cout != FUSED_COUT:
         raise ValueError(f"deform_conv_fused takes Cout == {FUSED_COUT}; "
                          f"got {cout}")
     chunk = FUSED_CHUNK[x.dtype]
-    if (g * k * FUSED_CG) % chunk:
-        rule = "a multiple of 4" if chunk == 64 else "even"
-        raise ValueError(f"deform_conv_fused takes G*kh*kw {rule} in "
-                         f"{x.dtype} (whole {chunk}-wide K chunks); got "
-                         f"G={g}, {kh}x{kw} taps")
+    per = chunk // (cin // g)        # slices a K chunk
+    if (g * k) % per:
+        rule = "even" if per == 2 else f"a multiple of {per}"
+        raise ValueError(f"deform_conv_fused takes G*kh*kw {rule} at CG "
+                         f"{cin // g} in {x.dtype} (whole {chunk}-wide K "
+                         f"chunks); got G={g}, {kh}x{kw} taps")
     if x.dtype == torch.float32 and x[0].numel() >= 2 ** 31:
         raise ValueError("deform_conv_fused takes images of x under 2^31 "
                          "elements in float32 (32-bit corner offsets)")
@@ -287,10 +292,13 @@ def deform_conv_fused(x, head, flow_1, flow_2, weight, bias=None,
 
     x: (N, H, W, Cin) CUDA bfloat16 or float32; head: (N, Ho, Wo, 3*K*G)
     of x's dtype; flows (N, Ho, Wo, 2) float32; weight (128, Cin, kh, kw);
-    bias (128,) or None; operands: conv_operands(weight, bias, x.dtype),
+    bias (128,) or None; operands: conv_operands(weight, bias, x.dtype, G),
     made here when None. Returns (N, Ho, Wo, 128) of x's dtype. Shapes
     outside check_fused_shapes' contract raise."""
-    x, head = _aligned(x.contiguous(), 16), _aligned(head.contiguous(), 8)
+    # CG 8 reads a bf16 head row's 8 slices in 16-byte loads
+    x = _aligned(x.contiguous(), 16)
+    head = _aligned(head.contiguous(),
+                    16 if x.shape[-1] * 27 == 8 * head.shape[-1] else 8)
     flow_1 = _aligned(flow_1.float().contiguous(), 8)
     flow_2 = _aligned(flow_2.float().contiguous(), 8)
     check_cuda_inputs("deform_conv_fused", x, head, flow_1, flow_2)
@@ -302,7 +310,7 @@ def deform_conv_fused(x, head, flow_1, flow_2, weight, bias=None,
         "deform_conv_fused", x, head, flow_1, flow_2, kh, kw, padding)
     check_fused_shapes(x, head, weight)
     if operands is None:
-        operands = conv_operands(weight, bias, x.dtype)
+        operands = conv_operands(weight, bias, x.dtype, g)
     wk, b32 = operands
     if wk.device != x.device or b32.device != x.device:
         raise ValueError("deform_conv_fused: the weight and bias must be on "

@@ -63,16 +63,20 @@ REFERENCE_BUFFER_SUFFIXES = (".attn.valid_ind_rolled",
 
 
 class Encoder(nn.Module):
-    def __init__(self):
+    """in_channels: 3 (E2FGVI's masked frames) or 5 (ProPainter's frames,
+    masks and updated masks)."""
+
+    def __init__(self, in_channels=3):
         super().__init__()
         layers = []
-        for cin, cout, stride, groups in _ENC_PLAN:
-            layers += [nn.Conv2d(cin, cout, 3, stride, 1, groups=groups),
+        for i, (cin, cout, stride, groups) in enumerate(_ENC_PLAN):
+            layers += [nn.Conv2d(in_channels if i == 0 else cin, cout, 3,
+                                 stride, 1, groups=groups),
                        nn.LeakyReLU(0.2)]
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):
-        """(B*T, H, W, 3) -> (B*T, H/4, W/4, 128)."""
+        """(B*T, H, W, in_channels) -> (B*T, H/4, W/4, 128)."""
         out, x0 = x, None
         for i, (_, _, stride, groups) in enumerate(_ENC_PLAN):
             if i == 4:
@@ -102,6 +106,8 @@ VARIANTS = ("base", "hq")
 
 
 class Generator(nn.Module):
+    family = "e2fgvi"
+
     def __init__(self, variant: str = "base"):
         super().__init__()
         if variant not in VARIANTS:

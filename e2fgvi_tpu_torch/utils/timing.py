@@ -16,8 +16,10 @@ sync debug mode set to "warn" for the call, its warnings counted),
 (`num_device_alloc + num_device_free` of its statistics), and
 `conv_launches`, the launches of C1, the float32 3x3 convolution kernel
 (kernels/conv.py `LAUNCHES`). Each is read at every span boundary and
-charged to the innermost open span. Spans and counts stay in memory until
-`totals()` reads them.
+charged to the innermost open span. The program adds counts of its own
+with `count` (ProPainter's `raft_iterations`, `attn_rows_flagged` and
+`attn_rows_frame`), charged likewise. Spans and counts stay in memory
+until `totals()` reads them.
 """
 
 import contextlib
@@ -118,6 +120,15 @@ class StageTimer:
         if then is not None:
             self._begin(then, stamp)
 
+    def count(self, name: str, n: int):
+        """Add n, a number the host already holds, to the counter `name`,
+        charged to the innermost open span."""
+        span = self._open[-1][0] if self._open else None
+        by_span = self._counts.setdefault(name, {})
+        by_span[None] = by_span.get(None, 0) + n
+        if span is not None:
+            by_span[span] = by_span.get(span, 0) + n
+
     @contextlib.contextmanager
     def video(self, device):
         """Record one call on `device`: the root range `inpaint.video` (in
@@ -195,6 +206,9 @@ class NoSpans:
         pass
 
     def mark(self, name, then=None):
+        pass
+
+    def count(self, name, n):
         pass
 
 

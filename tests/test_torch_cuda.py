@@ -85,9 +85,9 @@ def test_deform_fused_refuses_other_shapes(gen, dtype):
     x, head, f1, f2, wt, b = _k1_inputs(gen, dtype, 1, 5, 7, 64, 4)
     with pytest.raises(ValueError, match="Cout == 128"):
         deform.modulated_deform_conv2d_head(x, head, f1, f2, wt[:16], b[:16])
-    x8 = _randn(gen, 1, 5, 7, 32).to(dtype)      # CG 8
+    x4 = _randn(gen, 1, 5, 7, 16).to(dtype)      # CG 4
     with pytest.raises(ValueError, match="CG == 16"):
-        deform.modulated_deform_conv2d_head(x8, head, f1, f2, wt[:, :32],
+        deform.modulated_deform_conv2d_head(x4, head, f1, f2, wt[:, :16],
                                             b)
     with pytest.raises(ValueError, match="device"):
         deform.modulated_deform_conv2d_head(x, head, f1, f2, wt.cpu(), b)

@@ -354,12 +354,15 @@ def test_fused_weight_is_the_im2col_column_order(rng):
 
 # (Cin, head groups, Cout, kernel, dtype): each breaks one term of the
 # contract; G*K = 18 is whole 32-wide float32 chunks but no whole 64-wide
-# bfloat16 ones, G*K = 9 neither
-_BAD_FUSED = {"cg8": (64, 8, 128, 3, torch.bfloat16, "CG == 16"),
+# bfloat16 ones, G*K = 9 neither; at CG 8 a 64-wide chunk is 8 slices
+# (G*K = 36 is no whole number of them) and a 32-wide one 4 (9 is not)
+_BAD_FUSED = {"cg8": (32, 4, 128, 3, torch.bfloat16, "multiple of 8"),
+              "cg4": (32, 8, 128, 3, torch.bfloat16, "CG == 16"),
               "cout16": (64, 4, 16, 3, torch.bfloat16, "Cout == 128"),
               "partial_chunk": (32, 2, 128, 3, torch.bfloat16,
                                 "multiple of 4"),
-              "cg8_f32": (64, 8, 128, 3, torch.float32, "CG == 16"),
+              "cg8_f32": (8, 1, 128, 3, torch.float32, "multiple of 4"),
+              "cg4_f32": (32, 8, 128, 3, torch.float32, "CG == 16"),
               "cout16_f32": (64, 4, 16, 3, torch.float32, "Cout == 128"),
               "odd_gk_f32": (16, 1, 128, 3, torch.float32, "even")}
 
@@ -372,9 +375,10 @@ def test_fused_shape_checks_name_the_contract(case):
     with pytest.raises(ValueError, match=words):
         deform.check_fused_shapes(x, head, torch.zeros((cout, cin, kk, kk)))
     for dt in (torch.bfloat16, torch.float32):
-        deform.check_fused_shapes(torch.zeros((1, 4, 5, 256), dtype=dt),
-                                  torch.zeros((1, 4, 5, 432), dtype=dt),
-                                  torch.zeros((128, 256, 3, 3)))
+        for cin in (256, 128):          # E2FGVI's CG 16, ProPainter's 8
+            deform.check_fused_shapes(torch.zeros((1, 4, 5, cin), dtype=dt),
+                                      torch.zeros((1, 4, 5, 432), dtype=dt),
+                                      torch.zeros((128, cin, 3, 3)))
     deform.check_fused_shapes(torch.zeros((1, 4, 5, 32)),
                               torch.zeros((1, 4, 5, 54)),
                               torch.zeros((128, 32, 3, 3)))
