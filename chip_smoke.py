@@ -22,7 +22,8 @@ Phases, one line each (any failed check raises and exits nonzero):
               read its corners by LDS (executable ones: cp.async's
               never-taken @!PT LDS padding does not count); C1 (both
               its N-tile widths) must hold TF32 HGMMA and UTMALDG and no
-              HMMA, and ptxas must report 0 spill bytes for it
+              HMMA, and ptxas must report 0 spill bytes for it; so must C2
+              (its eight tap geometry and N-tile instantiations)
   3. kernels  K1 deform_conv, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
@@ -95,7 +96,17 @@ Phases, one line each (any failed check raises and exits nonzero):
               (generator bfloat16, RAFT float32, max_batch 14) on 2
               synthetic 40-frame 848x480 videos under a moving ellipse,
               seeded weights: launch counts reset just before, the share
-              of flagged rows, frames/s, stage split, peak memory
+              of flagged rows, frames/s, stage split, peak memory; C2's
+              launches, 202 a chunk of up to 16 fields
+  7c. raft conv  C2 (RAFT's update-block convolutions) at each of its
+              twelve convolutions on 848x480's 60x106 grid at N = 16
+              fields (timed) and 6, in the state buffer's channel ranges:
+              against float64 (C2_MAX_ABS_F64), ms beside the conv_gemm
+              path's (cuBLAS float32, TF32 off: plain_ms) and the bound
+              at the 3xTF32 rate (165 TFLOP/s); then one whole refine of
+              16 fields (20 iterations, the benchmark's seeded RAFT) on
+              C2 and on the conv_gemm path: ms, plain_ms, bound, the
+              worst field's mean endpoint error between them
   8. evaluate the evaluate entry point (float32) on a synthetic DAVIS-layout
               set of 3 videos of 24 frames with a seeded I3D: PSNR/SSIM in
               range, a finite VFID from I3D on the card, the metrics file,
@@ -173,6 +184,10 @@ F32_TOL = {"deform_conv": (1e-5, 1e-4), "flow_warp": (1e-5, 1e-4),
 F32_MAX_ABS = {"deform_conv": 2e-5, "focal_attention": 1e-5,
                "conv3x3": 3e-5}
 C1_MAX_ABS_F64 = 1e-5
+# C2 (raft_conv) at RAFT's covered convolutions: held to float64 as C1 is;
+# its refine to the conv_gemm path's flows (mean endpoint error, px)
+C2_MAX_ABS_F64 = 1e-5
+C2_MAX_EPE = 1e-4
 BF16_REL = {"deform_conv": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2,
             "band_sample": 2e-2, "band_sample_cbatch": 2e-2,
             "band_sample_xpair": 2e-2, "band_sample_cpair": 2e-2,
@@ -767,6 +782,7 @@ def check_k3(dev, b, h, w, t=17, timed=True, pad="serving", chunked=False,
 
 
 SERVING_KERNELS = ("deform", "focal_attention", "conv")
+PROPAINTER_KERNELS = SERVING_KERNELS + ("raft_conv",)
 SERVING_NAMES = ("deform_conv", "flow_warp", "focal_attention")
 EXPERIMENT_KERNELS = ("band_sampler", "gather", "band_attention")
 
@@ -1101,6 +1117,165 @@ def propainter_models(dev, seed=0):
             r.to(dev).float().eval())
 
 
+RAFT_GRID = (60, 106)          # RAFT's 1/8 grid at 848x480
+# C2's epilogue of each covered convolution (raft.update_operands' names);
+# the others "relu"
+C2_ACTS = {"zr1": "zr", "zr2": "zr", "q1": "gru", "q2": "gru",
+           "fh2": "none", "mask2": "none"}
+C2_MASK_HEAD = ("mask0", "mask2")    # once a refine; the rest an iteration
+
+
+def raft_conv_args(randn, act, cin, n, h, w):
+    """A covered convolution's inputs as raft.update hands them over: "zr"
+    reads the state's [net, x] and writes r * net into it, "gru" reads
+    [x, r * net] and writes over net; the others a contiguous map."""
+    import torch
+    from e2fgvi_tpu_torch.models import raft
+    if act not in ("zr", "gru"):
+        return {"x": randn(n, h, w, cin)}
+    state = randn(n, h, w, raft.STATE)
+    z = torch.sigmoid(randn(n, h, w, raft.HIDDEN_DIM))
+    net = state[..., raft.NET]
+    if act == "zr":
+        return {"x": state[..., raft.HX], "out": state[..., raft.RNET],
+                "net": net, "z": z}
+    return {"x": state[..., raft.XR], "out": net, "net": net, "z": z}
+
+
+def check_raft_conv(dev, n=16, timed=True):
+    """C2 at each covered convolution of RAFT's update block (PyTorch's
+    default initialization, seed 0) on n fields of RAFT_GRID: against its
+    plain version in float64; timed, ms, plain_ms (the conv_gemm path on
+    the card: cuBLAS float32, TF32 off), bound_ms (operations at the 3xTF32
+    rate) and share, and the sums over one iteration's ten."""
+    import torch
+    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    from e2fgvi_tpu_torch.models import raft
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    torch.manual_seed(0)
+    ops = raft.update_operands(raft.RAFT().update_block.to(dev))
+    randn = _randn_fn(dev, seed=7)
+    h, w = RAFT_GRID
+    res = {}
+    for name, op in ops.items():
+        act = C2_ACTS.get(name, "relu")
+        cout, cin, kh, kw = op.weight.shape
+        args = raft_conv_args(randn, act, cin, n, h, w)
+        ref = {k: v.double() for k, v in args.items() if k != "out"}
+        before = rc.LAUNCHES["raft_conv"]
+        got = rc.raft_conv(ops=op, act=act, **args)
+        if rc.LAUNCHES["raft_conv"] != before + 1:
+            raise AssertionError(f"raft_conv {name} did not launch C2")
+        want = rc.raft_conv_plain(ref["x"], op.weight.double(),
+                                  op.bias.double(), act, ref.get("net"),
+                                  ref.get("z"))
+        errs = []
+        if act == "zr":
+            wz, want = want
+            errs.append(float((args["z"].double() - wz).abs().max()))
+        errs.append(float((got.double() - want).abs().max()))
+        e = {"shape": [n, h, w, cin, cout, kh, kw], "act": act, "bn": op.bn,
+             "max_abs_err_f64": max(errs)}
+        if not e["max_abs_err_f64"] <= C2_MAX_ABS_F64:
+            raise AssertionError(f"raft_conv {name}: {errs} from float64 > "
+                                 f"{C2_MAX_ABS_F64}")
+        del ref, want, got
+        if timed:
+            e["ms"] = cuda_ms(lambda: rc.raft_conv(ops=op, act=act, **args))
+            e["plain_ms"] = cuda_ms(lambda: rc.plain_call(ops=op, act=act,
+                                                          **args))
+            flops = 2 * n * h * w * cout * cin * kh * kw
+            e["bound_ms"] = flops / (PEAK_FLOPS["tf32"] / 3) * 1e3
+            e["share"] = e["bound_ms"] / e["ms"]
+        res[name] = e
+        del args
+        torch.cuda.empty_cache()
+    out = {"n": n, "map": [h, w], "convs": res,
+           "max_abs_err_f64": max(e["max_abs_err_f64"]
+                                  for e in res.values())}
+    if timed:
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out[key] = sum(e[key] for k, e in res.items()
+                           if k not in C2_MASK_HEAD)
+        out["bound_by"] = "operations"
+        out["share"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def check_raft_refine(dev, n_pairs=8):
+    """One refine of 2 n_pairs fields (the forward and backward fields of
+    n_pairs pairs of smooth 848x480 frames that pan 5 px right and 3 px
+    down a frame, as video_flows chunks them) with the benchmark's seeded
+    RAFT weights, 20 iterations: on C2 and on the conv_gemm path (every
+    covered convolution on its plain version): ms, plain_ms, the bound of
+    C2's operations at the 3xTF32 rate, C2's launches, and each field's
+    mean endpoint error between the two (worst within C2_MAX_EPE); under
+    "trace", the device operations of one warm video_flows over the same
+    frames (the encoders, the volume and the refine)."""
+    import torch
+    import torch.nn.functional as F
+    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    from e2fgvi_tpu_torch.models import raft
+    from e2fgvi_tpu_torch.utils.profiling import trace
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    bench = os.path.join(ROOT, "perfbench")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    from harness.weights_propainter import make_state_dicts
+    r = raft.RAFT()
+    r.load_state_dict(make_state_dicts(9876543210123, torch.device("cpu"))[
+        "raft"], strict=True)
+    r = r.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(11)
+    t = n_pairs + 1
+    low = torch.rand((1, 3, (480 + 3 * t) // 8 + 1, (848 + 5 * t) // 8 + 1),
+                     generator=g, device=dev)
+    big = F.interpolate(low, size=(480 + 3 * t, 848 + 5 * t),
+                        mode="bilinear")[0]
+    f = torch.stack([big[:, 3 * i: 3 * i + 480, 5 * i: 5 * i + 848]
+                     for i in range(t)]).permute(0, 2, 3, 1) * 2 - 1
+    with torch.inference_mode():
+        fmap = raft.encode(r.fnet, f)
+        net, inp = raft.context(r, f)
+        k = n_pairs
+        args = (torch.cat([fmap[:k], fmap[1:]]),
+                torch.cat([fmap[1:], fmap[:k]]),
+                torch.cat([net[:k], net[1:]]), torch.cat([inp[:k], inp[1:]]))
+        before = rc.LAUNCHES["raft_conv"]
+        got = raft.refine(r, *args)
+        launches = rc.LAUNCHES["raft_conv"] - before
+        ms = cuda_ms(lambda: raft.refine(r, *args), iters=5, warmup=1)
+        orig = rc.raft_conv
+        rc.raft_conv = rc.plain_call
+        try:
+            want = raft.refine(r, *args)
+            plain_ms = cuda_ms(lambda: raft.refine(r, *args), iters=3,
+                               warmup=1)
+        finally:
+            rc.raft_conv = orig
+        with trace() as table:
+            raft.video_flows(r, f)
+    epe = (got - want).norm(dim=-1).mean(dim=(1, 2))
+    ops = raft.update_operands(r.update_block)
+    h, w = fmap.shape[1:3]
+    fields = 2 * k
+    flops = sum(2 * fields * h * w * op.weight[0].numel() * op.weight.shape[0]
+                * (1 if name in C2_MASK_HEAD else raft.ITERS)
+                for name, op in ops.items())
+    res = {"fields": fields, "map": [h, w], "iters": raft.ITERS,
+           "launches": launches, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": flops / (PEAK_FLOPS["tf32"] / 3) * 1e3,
+           "epe_px": [float(v) for v in epe],
+           "flow_mean_px": float(want.norm(dim=-1).mean()), "trace": table}
+    res["share"] = res["bound_ms"] / res["ms"]
+    if launches != 10 * raft.ITERS + 2:
+        raise AssertionError(f"refine launched C2 {launches} times")
+    if not max(res["epe_px"]) <= C2_MAX_EPE:
+        raise AssertionError(f"refine on C2: endpoint error {res['epe_px']} "
+                             f"px from the conv_gemm path > {C2_MAX_EPE}")
+    return res
+
+
 def serve_propainter(dev, n_videos=2, t=40, h=480, w=848,
                      ellipse=(200, 150, 150, 100)):
     """ProPainter serving: SlidingWindowInpainter (generator bfloat16,
@@ -1124,7 +1299,7 @@ def serve_propainter(dev, n_videos=2, t=40, h=480, w=848,
                           + ((yy - cy - 2 * i) / ay) ** 2 <= 1.0
                           for i in range(t)])[..., None].astype(np.uint8)
         videos.append((frames, masks))
-    reset_launch_counts()
+    reset_launch_counts(PROPAINTER_KERNELS)
     runs = []
     for frames, masks in videos:
         timer = StageTimer()
@@ -1148,10 +1323,14 @@ def serve_propainter(dev, n_videos=2, t=40, h=480, w=848,
                   if not k.startswith(("attn_rows", "raft_iterations"))}
         runs.append({"seconds": dt, "fps": t / dt, "stages_ms": stages,
                      "flagged_share": flagged / (flagged + frame)})
-    counts = launch_counts()
-    # the generator runs in bfloat16: C1 (float32 only) is bypassed
-    if not all(counts[k] > 0 for k in SERVING_NAMES) or counts["conv3x3"]:
-        raise AssertionError(f"ProPainter serving launches {counts}")
+    counts = launch_counts(PROPAINTER_KERNELS)
+    # the generator runs in bfloat16: C1 (float32 only) is bypassed; RAFT's
+    # update block runs on C2, 202 launches a chunk of up to 16 fields
+    c2 = n_videos * 202 * -(-(t - 1) // 8)
+    if not all(counts[k] > 0 for k in SERVING_NAMES) or counts["conv3x3"] \
+            or counts["raft_conv"] != c2:
+        raise AssertionError(f"ProPainter serving launches {counts}, C2 "
+                             f"{c2} expected")
     del inpainter, g, r
     torch.cuda.empty_cache()
     return runs, counts
@@ -2319,6 +2498,21 @@ def main():
             and any(op.startswith("UTMALDG") for op in ops)) or any(
                 op.startswith("HMMA") for op in ops):
         raise AssertionError(f"C1 is not on TF32 wgmma + TMA alone: {ops}")
+    # C2: the same, for its eight instantiations
+    info = ptxas_info(nvcc_log, "raft_conv_tf32_kernel")
+    log(f"ptxas raft_conv_tf32_kernel: {json.dumps(info)}")
+    if len(info) != 8 or any(i.get("spill_stores", 1) or
+                             i.get("spill_loads", 1) for i in info):
+        raise AssertionError(f"C2: spills or no ptxas report: {info}")
+    hist = sass_histograms(lib_path, ["raft_conv_tf32_kernel"])[
+        "raft_conv_tf32_kernel"]
+    ops = {op: n for op, n in hist.items()
+           if op.startswith(("HGMMA", "UTMALDG", "HMMA"))}
+    log(f"C2 SASS opcodes: {json.dumps(ops)}")
+    if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
+            and any(op.startswith("UTMALDG") for op in ops)) or any(
+                op.startswith("HMMA") for op in ops):
+        raise AssertionError(f"C2 is not on TF32 wgmma + TMA alone: {ops}")
     csrc = os.path.join(ROOT, CSRC)
     if any("flash_mma" in name or "flash_mma" in open(
             os.path.join(csrc, name)).read() for name in os.listdir(csrc)):
@@ -2426,6 +2620,18 @@ def main():
         "GiB")
     t0 = phase_end("propainter", t0)
 
+    # 7c. raft conv: C2 at RAFT's covered convolutions and in one refine
+    rres = check_raft_conv(dev)
+    rres["n6"] = check_raft_conv(dev, n=6, timed=False)["max_abs_err_f64"]
+    for name, r in rres["convs"].items():
+        log(f"raft_conv {name}: " + json.dumps(r))
+    rres["refine"] = check_raft_refine(dev)
+    log_trace("raft video_flows, 9 frames 848x480 (one refine of 16 "
+              "fields)", rres["refine"].pop("trace"))
+    log("raft_conv refine: " + json.dumps(rres["refine"]))
+    torch.cuda.empty_cache()
+    t0 = phase_end("raft conv", t0)
+
     # 8. evaluate: the benchmark-evaluation entry point with VFID
     with tempfile.TemporaryDirectory() as tmp:
         eval_res, vcounts = run_evaluate(dev, tmp)
@@ -2514,6 +2720,13 @@ def main():
                 if k in (*hq_keys, "shape", "rows", "rows_share", "T",
                          "queries", "keys")}
         kernels.append(entry)
+    kernels.append({
+        "name": "raft_conv", "route": "cuda", "source": CSRC + "raft_conv.cu",
+        # C2 replaces no TPU kernel: the JAX package has no RAFT
+        "replaces": None, "launches_propainter": pcounts["raft_conv"],
+        "max_abs_err_f64": max(rres["max_abs_err_f64"], rres["n6"]),
+        **{k: rres[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "share", "n", "map", "convs", "refine")}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -82,21 +82,21 @@ def check_shapes(x, weight, stride=1, padding=1, residual=None):
 
 
 def conv_weight(weight):
-    """The weight (Cout, Cin, 3, 3) as C1's B operand in float32: (Cout,
-    9 * Cin_pad), K-major, Cin_pad = Cin rounded up to 32 with zero
-    channels; chunk q = c * 9 + tap (tap = 3 ky + kx) holds channels 32c ..
-    32c + 31 of that tap, column 8kk + j of the chunk channel
-    8 (j % 4) + 2kk + j // 4: thread t of a quad hands the wgmma's k-step
-    kk its channels 8t + 2kk (k-column t) and 8t + 2kk + 1 (k-column
-    t + 4)."""
-    cout, cin = weight.shape[:2]
+    """The weight (Cout, Cin, kh, kw) as C1's (3x3) or C2's
+    (kernels/raft_conv.py) B operand in float32: (Cout, kh * kw * Cin_pad),
+    K-major, Cin_pad = Cin rounded up to 32 with zero channels; chunk
+    q = c * kh * kw + tap (tap = kw ky + kx) holds channels 32c .. 32c + 31
+    of that tap, column 8kk + j of the chunk channel 8 (j % 4) + 2kk +
+    j // 4: thread t of a quad hands the wgmma's k-step kk its channels
+    8t + 2kk (k-column t) and 8t + 2kk + 1 (k-column t + 4)."""
+    cout, cin, kh, kw = weight.shape
     chunks = -(-cin // CHUNK)
-    w = weight.new_zeros((cout, chunks * CHUNK, 3, 3), dtype=torch.float32)
+    w = weight.new_zeros((cout, chunks * CHUNK, kh, kw), dtype=torch.float32)
     w[:, :cin] = weight.float()
     # channel (t, kk, h) = 8t + 2kk + h to column (kk, h, t), as a view:
     # no index tensor to upload
-    w = w.reshape(cout, chunks, 4, 4, 2, 9).permute(0, 1, 5, 3, 4, 2)
-    return w.reshape(cout, chunks * 9 * CHUNK).contiguous()
+    w = w.reshape(cout, chunks, 4, 4, 2, kh * kw).permute(0, 1, 5, 3, 4, 2)
+    return w.reshape(cout, chunks * kh * kw * CHUNK).contiguous()
 
 
 def conv_operands(weight, bias) -> ConvOperands:

@@ -1,13 +1,17 @@
 """ProPainter's pieces of the port on the card: K1 at Cin 128 (16 groups
 of 8 channels) in both dtypes, the float32 feature propagation with every
-convolution on C1, K3 on the sparse transformer's flagged rows, and the
-whole serving call under sync debug mode "error".
+convolution on C1, K3 on the sparse transformer's flagged rows, C2 at each
+of RAFT's covered convolutions and in a whole refine, and the whole
+serving call under sync debug mode "error".
 
 CUDA kernels have no CPU mode, so these tests skip where CUDA is absent.
 On a machine with an H100 and nvcc:
 
     python -m pytest tests/test_torch_propainter_cuda.py -q -m cuda
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -183,3 +187,130 @@ def test_propainter_call_does_not_synchronize(gen, monkeypatch):
     got = inp(frames, masks.astype(np.float32), frames, masks)
     diff = np.abs(np.stack(got).astype(np.int32) - np.stack(want))
     assert diff.max() <= 1 and diff.mean() < 1e-2
+
+
+# C2 (kernels/raft_conv.py): each of RAFT's covered convolutions (models/
+# raft.py update_operands' names) at 848x480's 60x106 grid, on a chunk of
+# FIELD_CHUNK = 16 fields and a ragged chunk of 6, in the state buffer's
+# channel ranges where update() uses them; held to float64 as C1 is
+# (chip_smoke.C1_MAX_ABS_F64)
+C2_MAX_ABS_F64 = 1e-5
+RAFT_GRID = (60, 106)
+C2_ACTS = {"zr1": "zr", "zr2": "zr", "q1": "gru", "q2": "gru",
+           "fh2": "none", "mask2": "none"}
+C2_CONVS = ("convc1", "convc2", "convf2", "conv", "zr1", "q1", "zr2", "q2",
+            "fh1", "fh2", "mask0", "mask2")
+
+
+@pytest.fixture(scope="module")
+def raft_ops():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from e2fgvi_tpu_torch.models import raft
+    torch.manual_seed(0)
+    return raft.update_operands(raft.RAFT().update_block.cuda())
+
+
+def c2_args(gen, act, cin, cout, n, h, w):
+    """A covered convolution's inputs as update() hands them over: "zr"
+    reads the state's [net, x] and writes r * net into it, "gru" reads
+    [x, r * net] and writes over net; the others a contiguous map."""
+    from e2fgvi_tpu_torch.models import raft
+    if act not in ("zr", "gru"):
+        return {"x": _randn(gen, n, h, w, cin)}
+    state = _randn(gen, n, h, w, raft.STATE)
+    z = torch.sigmoid(_randn(gen, n, h, w, raft.HIDDEN_DIM))
+    if act == "zr":
+        return {"x": state[..., raft.HX], "out": state[..., raft.RNET],
+                "net": state[..., raft.NET], "z": z}
+    return {"x": state[..., raft.XR], "out": state[..., raft.NET],
+            "net": state[..., raft.NET], "z": z}
+
+
+@pytest.mark.parametrize("n", [16, 6])
+@pytest.mark.parametrize("name", C2_CONVS)
+def test_raft_conv_matches_float64(gen, raft_ops, name, n):
+    """C2 against its plain version in float64 (conv_gemm and the
+    epilogue) at RAFT's 848x480 shapes: within C2_MAX_ABS_F64, one launch,
+    the state buffer's other channels untouched."""
+    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    ops, act = raft_ops[name], C2_ACTS.get(name, "relu")
+    cout, cin = ops.weight.shape[:2]
+    args = c2_args(gen, act, cin, cout, n, *RAFT_GRID)
+    ref = {k: v.double() for k, v in args.items() if k != "out"}
+    whole = args["x"]._base if args["x"]._base is not None else None
+    before_buf = None if whole is None else whole.clone()
+    before = rc.LAUNCHES["raft_conv"]
+    got = rc.raft_conv(ops=ops, act=act, **args)
+    assert rc.LAUNCHES["raft_conv"] == before + 1
+    want = rc.raft_conv_plain(ref["x"], ops.weight.double(),
+                              ops.bias.double(), act, ref.get("net"),
+                              ref.get("z"))
+    if act == "zr":
+        wz, want = want
+        assert (args["z"].double() - wz).abs().max() <= C2_MAX_ABS_F64
+    assert got.shape == want.shape
+    err = float((got.double() - want).abs().max())
+    assert err <= C2_MAX_ABS_F64, err
+    if before_buf is not None:
+        from e2fgvi_tpu_torch.models import raft
+        kept = raft.HX if act == "zr" else raft.XR
+        assert torch.equal(whole[..., kept], before_buf[..., kept])
+
+
+def test_raft_conv_does_not_synchronize(gen, raft_ops):
+    """A launch of each epilogue under sync debug mode "error"."""
+    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    calls = [(name, c2_args(gen, C2_ACTS.get(name, "relu"),
+                            raft_ops[name].weight.shape[1],
+                            raft_ops[name].weight.shape[0], 2, 20, 40))
+             for name in ("convc1", "zr1", "q2", "fh2")]
+    for name, args in calls:                 # the library built and loaded
+        rc.raft_conv(ops=raft_ops[name], act=C2_ACTS.get(name, "relu"),
+                     **args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, args in calls:
+            rc.raft_conv(ops=raft_ops[name], act=C2_ACTS.get(name, "relu"),
+                         **args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_refine_on_c2_matches_the_conv_gemm_path(gen, monkeypatch):
+    """One refine of 4 seeded fields at 848x480 (the benchmark's seeded
+    RAFT weights, 20 iterations) on C2 against the same refine with every
+    convolution on its plain version (conv_gemm: cuBLAS float32, TF32
+    off): each field's mean endpoint error within 1e-4 px."""
+    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    from e2fgvi_tpu_torch.models import raft
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "perfbench")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    from harness.weights_propainter import make_state_dicts
+    r = raft.RAFT()
+    r.load_state_dict(make_state_dicts(9876543210123, torch.device("cpu"))[
+        "raft"], strict=True)
+    r = r.cuda().eval()
+    low = torch.rand((1, 3, 70, 120), generator=gen, device="cuda")
+    big = torch.nn.functional.interpolate(low, size=(560, 960),
+                                          mode="bilinear")[0]
+    f = torch.stack([big[:, 3 * i: 3 * i + 480, 5 * i: 5 * i + 848]
+                     for i in range(3)]).permute(0, 2, 3, 1) * 2 - 1
+    with torch.inference_mode():
+        fmap = raft.encode(r.fnet, f)
+        net, inp = raft.context(r, f)
+        args = (torch.cat([fmap[:2], fmap[1:]]),
+                torch.cat([fmap[1:], fmap[:2]]),
+                torch.cat([net[:2], net[1:]]), torch.cat([inp[:2], inp[1:]]))
+        before = rc.LAUNCHES["raft_conv"]
+        got = raft.refine(r, *args)
+        assert rc.LAUNCHES["raft_conv"] - before == 10 * raft.ITERS + 2
+        monkeypatch.setattr(rc, "raft_conv", rc.plain_call)
+        want = raft.refine(r, *args)
+    assert float(want.abs().mean()) > 1.0          # real motion
+    epe = (got - want).norm(dim=-1).mean(dim=(1, 2))
+    assert float(epe.max()) <= 1e-4, epe
