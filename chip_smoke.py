@@ -20,10 +20,10 @@ Phases, one line each (any failed check raises and exits nonzero):
               staged kernel of E5/E6 (band_staged_kernel) and of E1 (its
               CPair instantiation) must stage by LDGSTS or UTMALDG and
               read its corners by LDS (executable ones: cp.async's
-              never-taken @!PT LDS padding does not count); C1 (both
-              its N-tile widths) must hold TF32 HGMMA and UTMALDG and no
-              HMMA, and ptxas must report 0 spill bytes for it; so must C2
-              (its eight tap geometry and N-tile instantiations)
+              never-taken @!PT LDS padding does not count); C (its nine
+              tap geometry and N-tile instantiations) must hold TF32 HGMMA
+              and UTMALDG and no HMMA, and ptxas must report 0 spill
+              bytes for it
   3. kernels  K1 deform_conv, K2 flow_warp, K3 focal_attention against
               their plain PyTorch versions on the card at serving shapes
               (B=14 windows, 60x108 quarter-res), float32 and bfloat16;
@@ -37,21 +37,31 @@ Phases, one line each (any failed check raises and exits nonzero):
               FP32-rate bound beside it;
               K3 also at B=1 with only the first frame valid, and at
               the 2 and 1 heads a rank runs at model_parallel 2 and 4
-              (both dtypes, the same bars);
-              C1 (conv3x3, feat_prop's float32 3x3 convolutions) at each
-              of their six shapes with its epilogue, on 60x108 maps at
-              N = 4 (timed) and N = 1, and on HQ's 120x216 at N = 1
-              (timed): against F.conv2d with TF32 off and float64, its
-              bound at the 3xTF32 rate and at the FP32 rate, and as
-              library_ms the best of cuDNN's float32 convolution in the
-              port's NHWC call, on a contiguous NCHW tensor, and either
-              under cudnn.benchmark (yardsticks the port never calls).
+              (both dtypes, the same bars).
               Beside each kernel's ms: its plain version's, the one
               PyTorch call that computes the same function where there is
               one (library_ms: F.grid_sample for K2,
               scaled_dot_product_attention for K3), and its bound
               (bound_ms: bytes at 3.35 TB/s against operations at the
               H100 SXM's peak for their type)
+  3b. conv    C, the float32 convolution kernel, through both entry
+              points (check_conv): conv3x3 at feat_prop's six
+              convolutions with their epilogues, on 60x108 maps at N = 4
+              (timed) and N = 1, and on HQ's 120x216 at N = 1 (timed):
+              against F.conv2d with TF32 off and float64, its bound at
+              the 3xTF32 rate and at the FP32 rate, and as library_ms the
+              best of cuDNN's float32 convolution in the port's NHWC call,
+              on a contiguous NCHW tensor, and either under
+              cudnn.benchmark (yardsticks the port never calls);
+              raft_conv at RAFT's twelve update-block convolutions on
+              848x480's 60x106 grid at N = 16 fields (timed) and 6, in the
+              state buffer's channel ranges: against float64
+              (C_MAX_ABS_F64), ms beside the conv_gemm path's (gemm_call:
+              cuBLAS float32, TF32 off: plain_ms) and the bound at the
+              3xTF32 rate (165 TFLOP/s); then one whole refine of 16
+              fields (20 iterations, the benchmark's seeded RAFT) on C and
+              on the conv_gemm path: ms, plain_ms, bound, the worst
+              field's mean endpoint error between them
   4. golden   the generator in float32 with the kernels against
               tests/goldens/generator_base.npz
   5. serving  SlidingWindowInpainter (bfloat16, max_batch 14) on 3
@@ -96,17 +106,8 @@ Phases, one line each (any failed check raises and exits nonzero):
               (generator bfloat16, RAFT float32, max_batch 14) on 2
               synthetic 40-frame 848x480 videos under a moving ellipse,
               seeded weights: launch counts reset just before, the share
-              of flagged rows, frames/s, stage split, peak memory; C2's
-              launches, 202 a chunk of up to 16 fields
-  7c. raft conv  C2 (RAFT's update-block convolutions) at each of its
-              twelve convolutions on 848x480's 60x106 grid at N = 16
-              fields (timed) and 6, in the state buffer's channel ranges:
-              against float64 (C2_MAX_ABS_F64), ms beside the conv_gemm
-              path's (cuBLAS float32, TF32 off: plain_ms) and the bound
-              at the 3xTF32 rate (165 TFLOP/s); then one whole refine of
-              16 fields (20 iterations, the benchmark's seeded RAFT) on
-              C2 and on the conv_gemm path: ms, plain_ms, bound, the
-              worst field's mean endpoint error between them
+              of flagged rows, frames/s, stage split, peak memory; C's
+              raft_conv launches, 202 a chunk of up to 16 fields
   8. evaluate the evaluate entry point (float32) on a synthetic DAVIS-layout
               set of 3 videos of 24 frames with a seeded I3D: PSNR/SSIM in
               range, a finite VFID from I3D on the card, the metrics file,
@@ -178,16 +179,15 @@ F32_TOL = {"deform_conv": (1e-5, 1e-4), "flow_warp": (1e-5, 1e-4),
            "focal_attention": (2e-4, 2e-4), "conv3x3": (1e-5, 1e-5),
            "band_sample": (1e-5, 1e-5), "band_sample_cbatch": (1e-5, 1e-5),
            "row_gather": (0.0, 0.0), "bilinear4_sample": (1e-6, 1e-6)}
-# C1 (conv3x3) lands within 3.5e-6 of float64 at feat_prop's shapes
-# (outputs ~5), where cuDNN's float32 lands 1.4e-5 from it: held to 3e-5
-# of the plain version (cuDNN float32) and to C1_MAX_ABS_F64 of float64.
+# C (kernels/conv.py) lands within 3.5e-6 of float64 at feat_prop's
+# shapes (outputs ~5), where cuDNN's float32 lands 1.4e-5 from it: its
+# conv3x3 entry is held to 3e-5 of the plain form (cuDNN float32), and both
+# entries' convolutions to C_MAX_ABS_F64 of float64; RAFT's refine on C to
+# the conv_gemm path's flows (mean endpoint error, px)
 F32_MAX_ABS = {"deform_conv": 2e-5, "focal_attention": 1e-5,
                "conv3x3": 3e-5}
-C1_MAX_ABS_F64 = 1e-5
-# C2 (raft_conv) at RAFT's covered convolutions: held to float64 as C1 is;
-# its refine to the conv_gemm path's flows (mean endpoint error, px)
-C2_MAX_ABS_F64 = 1e-5
-C2_MAX_EPE = 1e-4
+C_MAX_ABS_F64 = 1e-5
+C_MAX_EPE = 1e-4
 BF16_REL = {"deform_conv": 2e-2, "flow_warp": 2e-2, "focal_attention": 5e-2,
             "band_sample": 2e-2, "band_sample_cbatch": 2e-2,
             "band_sample_xpair": 2e-2, "band_sample_cpair": 2e-2,
@@ -202,6 +202,8 @@ CSRC = "e2fgvi_tpu_torch/csrc/"
 # instructions and sass_digest (the parent tree's build, NVIDIA H100 80GB
 # HBM3, CUDA toolkit of the card's machine)
 K3_SASS = {"total": 1320, "digest": "e34515f45fb1"}
+# C's kernel, conv_tf32::conv_tf32_kernel, by its mangled name
+C_KERNEL = "9conv_tf3216conv_tf32_kernel"
 REPLACES = {
     "deform_conv": (CSRC + "deform.cu",
                     "e2fgvi_tpu/kernels/dcn_band.py:158"),
@@ -220,8 +222,8 @@ REPLACES = {
     "bilinear4_sample": (CSRC + "gather.cu", "scripts/exp_gather.py:171"),
     "band_attention": (CSRC + "band_attention.cu",
                        "scripts/exp_attn_band_r04.py:67"),
-    # C1 replaces no TPU kernel: the JAX package left these convolutions
-    # to XLA
+    # C replaces no TPU kernel: the JAX package left feat_prop's
+    # convolutions to XLA and has no RAFT
     "conv3x3": (CSRC + "conv.cu", None),
 }
 
@@ -434,25 +436,32 @@ def check_kernels(dev, b=B, h=H, w=W, t=17, timed=True):
     res["focal_attention"]["heads"] = {
         str(heads): check_k3(dev, b, h, w, t, timed=False, heads=heads)[0]
         for heads in (2, 1)}
-    res["conv3x3"] = check_conv3x3(dev, C1_BATCH, h, w, timed)
-    check_conv3x3(dev, 1, h, w, timed=False)
-    res["conv3x3"]["hq"] = check_conv3x3(dev, 1, *HQ_MAP, timed)
     return res
 
 
-# C1's shapes: feat_prop's six 3x3 convolutions (name, Cin, Cout, epilogue)
-# and how many of each one propagation step of the backward pass runs;
-# float32 serves at max_batch 4
-C1_CONVS = (("offset0", 388, 128, "leaky", 1), ("offset1", 128, 128,
-                                                "leaky", 2),
-            ("offset3", 128, 432, "none", 1),
-            ("backbone0", 256, 128, "leaky", 1),
-            ("backbone0_fwd", 384, 128, "leaky", 0),
-            ("backbone1", 128, 128, "residual", 1))
-C1_BATCH = 4
+# C's convolutions by entry point: name -> (epilogue, k), k how many of
+# each one step runs. conv3x3: feat_prop's six (Cin, Cout in C3X3_SHAPES)
+# in one propagation step of the backward pass; float32 serves at
+# max_batch C_BATCH. raft_conv: RAFT's twelve (raft.update_operands'
+# names) in one update iteration; the mask head's two run once a refine
+C_CONVS = {
+    "conv3x3": {"offset0": ("leaky", 1), "offset1": ("leaky", 2),
+                "offset3": ("none", 1), "backbone0": ("leaky", 1),
+                "backbone0_fwd": ("leaky", 0),
+                "backbone1": ("residual", 1)},
+    "raft_conv": {"convc1": ("relu", 1), "convc2": ("relu", 1),
+                  "convf2": ("relu", 1), "conv": ("relu", 1),
+                  "zr1": ("zr", 1), "q1": ("gru", 1), "zr2": ("zr", 1),
+                  "q2": ("gru", 1), "fh1": ("relu", 1), "fh2": ("none", 1),
+                  "mask0": ("relu", 0), "mask2": ("none", 0)}}
+C3X3_SHAPES = {"offset0": (388, 128), "offset1": (128, 128),
+               "offset3": (128, 432), "backbone0": (256, 128),
+               "backbone0_fwd": (384, 128), "backbone1": (128, 128)}
+C_BATCH = 4
+RAFT_GRID = (60, 106)          # RAFT's 1/8 grid at 848x480
 
 
-def c1_library(x, wt, b):
+def conv_library(x, wt, b):
     """The best (ms, form) of cuDNN's float32 convolution (TF32 off) on x:
     in the port's call (ops.convs.conv2d: a channels-last view), on a
     contiguous NCHW copy, and either under cudnn.benchmark. Yardsticks the
@@ -474,66 +483,145 @@ def c1_library(x, wt, b):
     return min(best)
 
 
-def check_conv3x3(dev, n, h, w, timed=True):
-    """C1 against its plain version (F.conv2d, TF32 off, then the
-    epilogue) and float64 at feat_prop's six shapes on n maps of h x w:
-    {conv: result}, and, timed, the sums over one backward propagation
-    step's six convolutions (offset1 twice) as the entry's ms, plain_ms,
-    bound_ms and library_ms, their worst errors beside."""
+def gemm_call(x, ops, act="none", out=None, net=None, z=None):
+    """raft_conv's call with its convolution on raft.conv_gemm (pad, patch
+    copy, cuBLAS float32 with TF32 off) and C's epilogue: the path C
+    replaced in RAFT, the yardstick of RAFT's plain_ms and refine."""
+    from e2fgvi_tpu_torch.kernels import conv
+    from e2fgvi_tpu_torch.models import raft
+    kh, kw = ops.weight.shape[2:]
+    y = conv.epilogue(raft.conv_gemm(x, ops.weight, ops.bias, 1,
+                                     (kh // 2, kw // 2)),
+                      act=act, net=net, z=z)
+    if act == "zr":
+        zt, y = y
+        z.copy_(zt)
+    return y if out is None else out.copy_(y)
+
+
+def raft_conv_args(randn, act, cin, n, h, w):
+    """A covered convolution's inputs as raft.update hands them over: "zr"
+    reads the state's [net, x] and writes r * net into it, "gru" reads
+    [x, r * net] and writes over net; the others a contiguous map."""
+    import torch
+    from e2fgvi_tpu_torch.models import raft
+    if act not in ("zr", "gru"):
+        return {"x": randn(n, h, w, cin)}
+    state = randn(n, h, w, raft.STATE)
+    z = torch.sigmoid(randn(n, h, w, raft.HIDDEN_DIM))
+    net = state[..., raft.NET]
+    if act == "zr":
+        return {"x": state[..., raft.HX], "out": state[..., raft.RNET],
+                "net": net, "z": z}
+    return {"x": state[..., raft.XR], "out": net, "net": net, "z": z}
+
+
+def check_conv(dev, entry, n, h, w, timed=True):
+    """C through `entry` at each of its convolutions (C_CONVS) on n maps
+    of h x w, one launch each, against its plain form in float64
+    (C_MAX_ABS_F64). conv3x3: random weights, feat_prop's epilogues, also
+    against the plain form in float32 (cuDNN, TF32 off: F32_TOL,
+    F32_MAX_ABS); raft_conv: RAFT's update block (PyTorch's default
+    initialization, seed 0) in the state buffer's channel ranges. Timed:
+    ms; plain_ms, the path C replaced (conv3x3: cuDNN float32; raft_conv:
+    gemm_call); bound_ms, operations at the 3xTF32 rate, and share;
+    conv3x3 also bound_ms_f32_fp32 (the FP32 rate) and library_ms
+    (conv_library); and the sums over one step's convolutions, each k
+    times (C_CONVS)."""
     import torch
     from e2fgvi_tpu_torch.kernels import conv
-    randn = _randn_fn(dev, seed=3)
+    from e2fgvi_tpu_torch.models import raft
+    from e2fgvi_tpu_torch.utils.timing import cuda_ms
+    if entry == "raft_conv":
+        torch.manual_seed(0)
+        raft_ops = raft.update_operands(raft.RAFT().update_block.to(dev))
+    randn = _randn_fn(dev, seed=3 if entry == "conv3x3" else 7)
 
-    def c1_bound(args, out, tf32=False):
+    def conv_bound(args, out, tf32=False):
         x, wt = args[0], args[1]
         flops = 2 * out.numel() * wt[0].numel()
         return roofline(args[:3], [out], [gemm_ops(flops, x, tf32)])
 
     res = {}
-    for name, cin, cout, epilogue, _ in C1_CONVS:
-        x = randn(n, h, w, cin)
-        wt, b = randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5), randn(
-            cout, std=0.1)
-        r = randn(n, h, w, cout) if epilogue == "residual" else None
-        slope = 0.1 if epilogue == "leaky" else None
+    for name, (act, _) in C_CONVS[entry].items():
+        if entry == "conv3x3":
+            cin, cout = C3X3_SHAPES[name]
+            x = randn(n, h, w, cin)
+            ops = conv.conv_operands(randn(cout, cin, 3, 3,
+                                           std=(9 * cin) ** -0.5),
+                                     randn(cout, std=0.1))
+            r = randn(n, h, w, cout) if act == "residual" else None
+            slope = 0.1 if act == "leaky" else None
+            act = "none" if act == "residual" else act
+            args = {"x": x, "residual": r}
 
-        def kernel_fn(x, wt, b, r):
-            return conv.conv3x3(x, wt, b, negative_slope=slope, residual=r,
-                                operands=ops)
+            def call(x, wt, b, r):
+                return conv.conv3x3(x, wt, b, negative_slope=slope,
+                                    residual=r, operands=ops)
+        else:
+            ops, r, slope = raft_ops[name], None, None
+            args = raft_conv_args(randn, act, ops.weight.shape[1], n, h, w)
 
-        def plain_fn(x, wt, b, r):
-            return conv.conv3x3_plain(x, wt, b, r, slope)
-
-        args = (x, wt, b, r)
-        ops = conv.conv_operands(wt, b)     # once a pass, as feat_prop
-        before = conv.LAUNCHES["conv3x3"]
-        e = compare("conv3x3", kernel_fn, plain_fn, lambda dt: args, timed,
-                    ("float32",), bound_fn=c1_bound,
-                    tf32_bound_fn=lambda a, out: c1_bound(a, out, True))
-        if conv.LAUNCHES["conv3x3"] == before:
-            raise AssertionError("conv3x3 did not launch C1")
-        want64 = plain_fn(*(None if t is None else t.double()
-                            for t in args))
-        e["max_abs_err_f64"] = float(
-            (kernel_fn(*args).double() - want64).abs().max())
-        if not e["max_abs_err_f64"] <= C1_MAX_ABS_F64:
-            raise AssertionError(f"conv3x3 {name}: {e['max_abs_err_f64']} "
-                                 f"from float64 > {C1_MAX_ABS_F64}")
+            def call():
+                return conv.raft_conv(ops=ops, act=act, **args)
+        cout, cin, kh, kw = ops.weight.shape
+        e = {"shape": [n, h, w, cin, cout, kh, kw], "act": act,
+             "bn": ops.bn}
+        # before the launch: "gru" writes over net
+        ref = {k: v.double() for k, v in args.items()
+               if k != "out" and v is not None}
+        before = conv.LAUNCHES[entry]
+        if entry == "conv3x3":
+            inputs = (x, ops.weight, ops.bias, r)
+            e.update(compare(
+                "conv3x3", call, lambda x, wt, b, r: conv.conv_plain(
+                    x, wt, b, r, act, slope), lambda dt: inputs, timed,
+                ("float32",), bound_fn=conv_bound,
+                tf32_bound_fn=lambda a, out: conv_bound(a, out, True)))
+            got = call(*inputs)
+        else:
+            got = call()
+        if conv.LAUNCHES[entry] == before:
+            raise AssertionError(f"{entry} {name} did not launch C")
+        want = conv.conv_plain(ref.pop("x"), ops.weight.double(),
+                               ops.bias.double(), act=act,
+                               negative_slope=slope, **ref)
+        errs = []
+        if act == "zr":
+            wz, want = want
+            errs.append(float((args["z"].double() - wz).abs().max()))
+        errs.append(float((got.double() - want).abs().max()))
+        e["max_abs_err_f64"] = max(errs)
+        if not e["max_abs_err_f64"] <= C_MAX_ABS_F64:
+            raise AssertionError(f"{entry} {name}: {errs} from float64 > "
+                                 f"{C_MAX_ABS_F64}")
+        del ref, want, got
+        if timed and entry == "conv3x3":
+            e["library_ms"], e["library"] = conv_library(x, ops.weight,
+                                                         ops.bias)
+        elif timed:
+            e["ms"] = cuda_ms(call)
+            e["plain_ms"] = cuda_ms(lambda: gemm_call(ops=ops, act=act,
+                                                      **args))
+            flops = 2 * n * h * w * cout * cin * kh * kw
+            e["bound_ms"] = flops / (PEAK_FLOPS["tf32"] / 3) * 1e3
         if timed:
-            e["library_ms"], e["library"] = c1_library(x, wt, b)
             e["share"] = e["bound_ms"] / e["ms"]
         res[name] = e
-        del x, wt, b, r, args, ops, want64
+        del args, ops, r
         torch.cuda.empty_cache()
-    out = {"n": n, "map": [h, w], "shapes": res,
-           "max_abs_err": max(e["max_abs_err"] for e in res.values()),
+    out = {"n": n, "map": [h, w], "convs": res,
            "max_abs_err_f64": max(e["max_abs_err_f64"]
                                   for e in res.values())}
+    if entry == "conv3x3":
+        out["max_abs_err"] = max(e["max_abs_err"] for e in res.values())
     if timed:
-        for key in ("ms", "plain_ms", "bound_ms", "bound_ms_f32_fp32",
-                    "library_ms"):
+        keys = ("ms", "plain_ms", "bound_ms") + (
+            ("bound_ms_f32_fp32", "library_ms") if entry == "conv3x3"
+            else ())
+        for key in keys:
             out[key] = sum(res[name][key] * k
-                           for name, *_, k in C1_CONVS)
+                           for name, (_, k) in C_CONVS[entry].items())
         out["bound_by"] = "operations"
         out["share"] = out["bound_ms"] / out["ms"]
     return out
@@ -782,7 +870,6 @@ def check_k3(dev, b, h, w, t=17, timed=True, pad="serving", chunked=False,
 
 
 SERVING_KERNELS = ("deform", "focal_attention", "conv")
-PROPAINTER_KERNELS = SERVING_KERNELS + ("raft_conv",)
 SERVING_NAMES = ("deform_conv", "flow_warp", "focal_attention")
 EXPERIMENT_KERNELS = ("band_sampler", "gather", "band_attention")
 
@@ -793,8 +880,11 @@ def _counters(modules):
             for m in modules]
 
 
-def launch_counts(modules=SERVING_KERNELS):
-    return {k: v for d in _counters(modules) for k, v in d.items()}
+def launch_counts(modules=SERVING_KERNELS, skip=("raft_conv",)):
+    """{entry point: launches} of the modules' counters but `skip`: by
+    default C's RAFT entry point, which E2FGVI never runs."""
+    return {k: v for d in _counters(modules) for k, v in d.items()
+            if k not in skip}
 
 
 def reset_launch_counts(modules=SERVING_KERNELS):
@@ -899,11 +989,11 @@ def serve(model, dev, n_videos=3, t=70, timer_cls=None, max_batch=B,
             raise AssertionError("output differs outside the mask")
         runs.append({"seconds": dt, "fps": t / dt, "stages_ms": stages})
     counts = launch_counts()
-    # C1 takes feat_prop's float32 convolutions; bfloat16 bypasses it
+    # C takes feat_prop's float32 convolutions; bfloat16 bypasses it
     c1 = counts.pop("conv3x3")
     if not all(v > 0 for v in counts.values()) or (
             (c1 > 0) != (dtype == "float32")):
-        raise AssertionError(f"serving missed a kernel: {counts}, C1 "
+        raise AssertionError(f"serving missed a kernel: {counts}, C "
                              f"{c1} in {dtype}")
     counts["conv3x3"] = c1
     return runs, counts, videos[0]
@@ -1117,104 +1207,19 @@ def propainter_models(dev, seed=0):
             r.to(dev).float().eval())
 
 
-RAFT_GRID = (60, 106)          # RAFT's 1/8 grid at 848x480
-# C2's epilogue of each covered convolution (raft.update_operands' names);
-# the others "relu"
-C2_ACTS = {"zr1": "zr", "zr2": "zr", "q1": "gru", "q2": "gru",
-           "fh2": "none", "mask2": "none"}
-C2_MASK_HEAD = ("mask0", "mask2")    # once a refine; the rest an iteration
-
-
-def raft_conv_args(randn, act, cin, n, h, w):
-    """A covered convolution's inputs as raft.update hands them over: "zr"
-    reads the state's [net, x] and writes r * net into it, "gru" reads
-    [x, r * net] and writes over net; the others a contiguous map."""
-    import torch
-    from e2fgvi_tpu_torch.models import raft
-    if act not in ("zr", "gru"):
-        return {"x": randn(n, h, w, cin)}
-    state = randn(n, h, w, raft.STATE)
-    z = torch.sigmoid(randn(n, h, w, raft.HIDDEN_DIM))
-    net = state[..., raft.NET]
-    if act == "zr":
-        return {"x": state[..., raft.HX], "out": state[..., raft.RNET],
-                "net": net, "z": z}
-    return {"x": state[..., raft.XR], "out": net, "net": net, "z": z}
-
-
-def check_raft_conv(dev, n=16, timed=True):
-    """C2 at each covered convolution of RAFT's update block (PyTorch's
-    default initialization, seed 0) on n fields of RAFT_GRID: against its
-    plain version in float64; timed, ms, plain_ms (the conv_gemm path on
-    the card: cuBLAS float32, TF32 off), bound_ms (operations at the 3xTF32
-    rate) and share, and the sums over one iteration's ten."""
-    import torch
-    from e2fgvi_tpu_torch.kernels import raft_conv as rc
-    from e2fgvi_tpu_torch.models import raft
-    from e2fgvi_tpu_torch.utils.timing import cuda_ms
-    torch.manual_seed(0)
-    ops = raft.update_operands(raft.RAFT().update_block.to(dev))
-    randn = _randn_fn(dev, seed=7)
-    h, w = RAFT_GRID
-    res = {}
-    for name, op in ops.items():
-        act = C2_ACTS.get(name, "relu")
-        cout, cin, kh, kw = op.weight.shape
-        args = raft_conv_args(randn, act, cin, n, h, w)
-        ref = {k: v.double() for k, v in args.items() if k != "out"}
-        before = rc.LAUNCHES["raft_conv"]
-        got = rc.raft_conv(ops=op, act=act, **args)
-        if rc.LAUNCHES["raft_conv"] != before + 1:
-            raise AssertionError(f"raft_conv {name} did not launch C2")
-        want = rc.raft_conv_plain(ref["x"], op.weight.double(),
-                                  op.bias.double(), act, ref.get("net"),
-                                  ref.get("z"))
-        errs = []
-        if act == "zr":
-            wz, want = want
-            errs.append(float((args["z"].double() - wz).abs().max()))
-        errs.append(float((got.double() - want).abs().max()))
-        e = {"shape": [n, h, w, cin, cout, kh, kw], "act": act, "bn": op.bn,
-             "max_abs_err_f64": max(errs)}
-        if not e["max_abs_err_f64"] <= C2_MAX_ABS_F64:
-            raise AssertionError(f"raft_conv {name}: {errs} from float64 > "
-                                 f"{C2_MAX_ABS_F64}")
-        del ref, want, got
-        if timed:
-            e["ms"] = cuda_ms(lambda: rc.raft_conv(ops=op, act=act, **args))
-            e["plain_ms"] = cuda_ms(lambda: rc.plain_call(ops=op, act=act,
-                                                          **args))
-            flops = 2 * n * h * w * cout * cin * kh * kw
-            e["bound_ms"] = flops / (PEAK_FLOPS["tf32"] / 3) * 1e3
-            e["share"] = e["bound_ms"] / e["ms"]
-        res[name] = e
-        del args
-        torch.cuda.empty_cache()
-    out = {"n": n, "map": [h, w], "convs": res,
-           "max_abs_err_f64": max(e["max_abs_err_f64"]
-                                  for e in res.values())}
-    if timed:
-        for key in ("ms", "plain_ms", "bound_ms"):
-            out[key] = sum(e[key] for k, e in res.items()
-                           if k not in C2_MASK_HEAD)
-        out["bound_by"] = "operations"
-        out["share"] = out["bound_ms"] / out["ms"]
-    return out
-
-
 def check_raft_refine(dev, n_pairs=8):
     """One refine of 2 n_pairs fields (the forward and backward fields of
     n_pairs pairs of smooth 848x480 frames that pan 5 px right and 3 px
     down a frame, as video_flows chunks them) with the benchmark's seeded
-    RAFT weights, 20 iterations: on C2 and on the conv_gemm path (every
-    covered convolution on its plain version): ms, plain_ms, the bound of
-    C2's operations at the 3xTF32 rate, C2's launches, and each field's
-    mean endpoint error between the two (worst within C2_MAX_EPE); under
+    RAFT weights, 20 iterations: on C and on the conv_gemm path (every
+    covered convolution through gemm_call): ms, plain_ms, the bound of C's
+    operations at the 3xTF32 rate, C's raft_conv launches, and each field's
+    mean endpoint error between the two (worst within C_MAX_EPE); under
     "trace", the device operations of one warm video_flows over the same
     frames (the encoders, the volume and the refine)."""
     import torch
     import torch.nn.functional as F
-    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    from e2fgvi_tpu_torch.kernels import conv
     from e2fgvi_tpu_torch.models import raft
     from e2fgvi_tpu_torch.utils.profiling import trace
     from e2fgvi_tpu_torch.utils.timing import cuda_ms
@@ -1241,18 +1246,18 @@ def check_raft_refine(dev, n_pairs=8):
         args = (torch.cat([fmap[:k], fmap[1:]]),
                 torch.cat([fmap[1:], fmap[:k]]),
                 torch.cat([net[:k], net[1:]]), torch.cat([inp[:k], inp[1:]]))
-        before = rc.LAUNCHES["raft_conv"]
+        before = conv.LAUNCHES["raft_conv"]
         got = raft.refine(r, *args)
-        launches = rc.LAUNCHES["raft_conv"] - before
+        launches = conv.LAUNCHES["raft_conv"] - before
         ms = cuda_ms(lambda: raft.refine(r, *args), iters=5, warmup=1)
-        orig = rc.raft_conv
-        rc.raft_conv = rc.plain_call
+        orig = conv.raft_conv
+        conv.raft_conv = gemm_call
         try:
             want = raft.refine(r, *args)
             plain_ms = cuda_ms(lambda: raft.refine(r, *args), iters=3,
                                warmup=1)
         finally:
-            rc.raft_conv = orig
+            conv.raft_conv = orig
         with trace() as table:
             raft.video_flows(r, f)
     epe = (got - want).norm(dim=-1).mean(dim=(1, 2))
@@ -1260,7 +1265,7 @@ def check_raft_refine(dev, n_pairs=8):
     h, w = fmap.shape[1:3]
     fields = 2 * k
     flops = sum(2 * fields * h * w * op.weight[0].numel() * op.weight.shape[0]
-                * (1 if name in C2_MASK_HEAD else raft.ITERS)
+                * (raft.ITERS if C_CONVS["raft_conv"][name][1] else 1)
                 for name, op in ops.items())
     res = {"fields": fields, "map": [h, w], "iters": raft.ITERS,
            "launches": launches, "ms": ms, "plain_ms": plain_ms,
@@ -1269,10 +1274,10 @@ def check_raft_refine(dev, n_pairs=8):
            "flow_mean_px": float(want.norm(dim=-1).mean()), "trace": table}
     res["share"] = res["bound_ms"] / res["ms"]
     if launches != 10 * raft.ITERS + 2:
-        raise AssertionError(f"refine launched C2 {launches} times")
-    if not max(res["epe_px"]) <= C2_MAX_EPE:
-        raise AssertionError(f"refine on C2: endpoint error {res['epe_px']} "
-                             f"px from the conv_gemm path > {C2_MAX_EPE}")
+        raise AssertionError(f"refine launched C {launches} times")
+    if not max(res["epe_px"]) <= C_MAX_EPE:
+        raise AssertionError(f"refine on C: endpoint error {res['epe_px']} "
+                             f"px from the conv_gemm path > {C_MAX_EPE}")
     return res
 
 
@@ -1299,7 +1304,7 @@ def serve_propainter(dev, n_videos=2, t=40, h=480, w=848,
                           + ((yy - cy - 2 * i) / ay) ** 2 <= 1.0
                           for i in range(t)])[..., None].astype(np.uint8)
         videos.append((frames, masks))
-    reset_launch_counts(PROPAINTER_KERNELS)
+    reset_launch_counts()
     runs = []
     for frames, masks in videos:
         timer = StageTimer()
@@ -1323,13 +1328,13 @@ def serve_propainter(dev, n_videos=2, t=40, h=480, w=848,
                   if not k.startswith(("attn_rows", "raft_iterations"))}
         runs.append({"seconds": dt, "fps": t / dt, "stages_ms": stages,
                      "flagged_share": flagged / (flagged + frame)})
-    counts = launch_counts(PROPAINTER_KERNELS)
-    # the generator runs in bfloat16: C1 (float32 only) is bypassed; RAFT's
-    # update block runs on C2, 202 launches a chunk of up to 16 fields
+    counts = launch_counts(skip=())
+    # the generator runs in bfloat16: conv3x3 (float32 only) is bypassed;
+    # RAFT's update block runs on C, 202 launches a chunk of up to 16 fields
     c2 = n_videos * 202 * -(-(t - 1) // 8)
     if not all(counts[k] > 0 for k in SERVING_NAMES) or counts["conv3x3"] \
             or counts["raft_conv"] != c2:
-        raise AssertionError(f"ProPainter serving launches {counts}, C2 "
+        raise AssertionError(f"ProPainter serving launches {counts}, C "
                              f"{c2} expected")
     del inpainter, g, r
     torch.cuda.empty_cache()
@@ -1586,7 +1591,7 @@ def train_base(dev, root, save_dir, batch):
     res["launches_remat_per_step"] = {
         k: counts[k] / TRAIN_STEPS - fwd[k] for k in counts}
     # remat recomputes every propagation step but the first, whose two
-    # backbone convolutions a direction (C1) are not checkpointed
+    # backbone convolutions a direction (C) are not checkpointed
     recomputed = dict(fwd, conv3x3=fwd["conv3x3"] - 4)
     if res["launches_remat_per_step"] != {k: float(v) for k, v in
                                           recomputed.items()}:
@@ -2483,36 +2488,22 @@ def main():
         if not ((ops["LDGSTS"] or ops["UTMALDG"]) and ops["LDS"]):
             raise AssertionError(f"{label} does not stage its slab in "
                                  f"shared memory: {ops}")
-    # C1: 3xTF32 on TF32 wgmma fed by TMA, no mma.sync, no spills
-    info = ptxas_info(nvcc_log, "conv3x3_tf32_kernel")
-    log(f"ptxas conv3x3_tf32_kernel: {json.dumps(info)}")
-    if len(info) != 2 or any(i.get("spill_stores", 1) or
+    # C: 3xTF32 on TF32 wgmma fed by TMA, no mma.sync, no spills, in its
+    # nine instantiations (the mangled name's length prefix keeps out K1's
+    # deform_conv_tf32_kernel)
+    info = ptxas_info(nvcc_log, C_KERNEL)
+    log(f"ptxas conv_tf32_kernel: {json.dumps(info)}")
+    if len(info) != 9 or any(i.get("spill_stores", 1) or
                              i.get("spill_loads", 1) for i in info):
-        raise AssertionError(f"C1: spills or no ptxas report: {info}")
-    hist = sass_histograms(lib_path, ["conv3x3_tf32_kernel"])[
-        "conv3x3_tf32_kernel"]
+        raise AssertionError(f"C: spills or no ptxas report: {info}")
+    hist = sass_histograms(lib_path, [C_KERNEL])[C_KERNEL]
     ops = {op: n for op, n in hist.items()
            if op.startswith(("HGMMA", "UTMALDG", "HMMA"))}
-    log(f"C1 SASS opcodes: {json.dumps(ops)}")
+    log(f"C SASS opcodes: {json.dumps(ops)}")
     if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
             and any(op.startswith("UTMALDG") for op in ops)) or any(
                 op.startswith("HMMA") for op in ops):
-        raise AssertionError(f"C1 is not on TF32 wgmma + TMA alone: {ops}")
-    # C2: the same, for its eight instantiations
-    info = ptxas_info(nvcc_log, "raft_conv_tf32_kernel")
-    log(f"ptxas raft_conv_tf32_kernel: {json.dumps(info)}")
-    if len(info) != 8 or any(i.get("spill_stores", 1) or
-                             i.get("spill_loads", 1) for i in info):
-        raise AssertionError(f"C2: spills or no ptxas report: {info}")
-    hist = sass_histograms(lib_path, ["raft_conv_tf32_kernel"])[
-        "raft_conv_tf32_kernel"]
-    ops = {op: n for op, n in hist.items()
-           if op.startswith(("HGMMA", "UTMALDG", "HMMA"))}
-    log(f"C2 SASS opcodes: {json.dumps(ops)}")
-    if not (any(op.startswith("HGMMA") and "TF32" in op for op in ops)
-            and any(op.startswith("UTMALDG") for op in ops)) or any(
-                op.startswith("HMMA") for op in ops):
-        raise AssertionError(f"C2 is not on TF32 wgmma + TMA alone: {ops}")
+        raise AssertionError(f"C is not on TF32 wgmma + TMA alone: {ops}")
     csrc = os.path.join(ROOT, CSRC)
     if any("flash_mma" in name or "flash_mma" in open(
             os.path.join(csrc, name)).read() for name in os.listdir(csrc)):
@@ -2525,6 +2516,24 @@ def main():
         log(f"kernel {name}: " + json.dumps(r))
     torch.cuda.empty_cache()
     t0 = phase_end("kernels", t0)
+
+    # 3b. conv: C through conv3x3 at feat_prop's convolutions and through
+    # raft_conv at RAFT's covered convolutions and in one refine
+    kres["conv3x3"] = check_conv(dev, "conv3x3", C_BATCH, H, W)
+    check_conv(dev, "conv3x3", 1, H, W, timed=False)
+    kres["conv3x3"]["hq"] = check_conv(dev, "conv3x3", 1, *HQ_MAP)
+    log("kernel conv3x3: " + json.dumps(kres["conv3x3"]))
+    rres = check_conv(dev, "raft_conv", 16, *RAFT_GRID)
+    rres["n6"] = check_conv(dev, "raft_conv", 6, *RAFT_GRID,
+                            timed=False)["max_abs_err_f64"]
+    for name, r in rres["convs"].items():
+        log(f"raft_conv {name}: " + json.dumps(r))
+    rres["refine"] = check_raft_refine(dev)
+    log_trace("raft video_flows, 9 frames 848x480 (one refine of 16 "
+              "fields)", rres["refine"].pop("trace"))
+    log("raft_conv refine: " + json.dumps(rres["refine"]))
+    torch.cuda.empty_cache()
+    t0 = phase_end("conv", t0)
 
     # 4. golden, float32 with the kernels
     model32 = golden_model("base", dev)
@@ -2620,18 +2629,6 @@ def main():
         "GiB")
     t0 = phase_end("propainter", t0)
 
-    # 7c. raft conv: C2 at RAFT's covered convolutions and in one refine
-    rres = check_raft_conv(dev)
-    rres["n6"] = check_raft_conv(dev, n=6, timed=False)["max_abs_err_f64"]
-    for name, r in rres["convs"].items():
-        log(f"raft_conv {name}: " + json.dumps(r))
-    rres["refine"] = check_raft_refine(dev)
-    log_trace("raft video_flows, 9 frames 848x480 (one refine of 16 "
-              "fields)", rres["refine"].pop("trace"))
-    log("raft_conv refine: " + json.dumps(rres["refine"]))
-    torch.cuda.empty_cache()
-    t0 = phase_end("raft conv", t0)
-
     # 8. evaluate: the benchmark-evaluation entry point with VFID
     with tempfile.TemporaryDirectory() as tmp:
         eval_res, vcounts = run_evaluate(dev, tmp)
@@ -2687,10 +2684,10 @@ def main():
                "max_abs_err_1xtf32")
     e2_keys = ("kernel_ms", "kernel_bound_ms", "kernel_bound_by",
                "k3_layer_ms", "parity")
-    c1_keys = ("shapes", "hq", "share", "max_abs_err_f64", "n", "map")
+    c_keys = ("convs", "hq", "share", "max_abs_err_f64", "n", "map")
     extra = ("ms_f32", "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
              "library_ms_f32", "bf16_rel_err", "heads", *k1_keys, *e2_keys,
-             *c1_keys)
+             *c_keys)
     hq_keys = ("ms", "plain_ms", "bound_ms", "library_ms", "ms_f32",
                "plain_ms_f32", "bound_ms_f32", "bound_ms_f32_fp32",
                "library_ms_f32",
@@ -2707,7 +2704,7 @@ def main():
                  "bound_by": r["bound_by"],
                  "library_ms": r.get("library_ms"),
                  **{k: r[k] for k in extra if k in r}}
-        if name == "conv3x3":         # bf16 serving bypasses C1
+        if name == "conv3x3":         # bf16 serving bypasses C
             entry["launches_f32_serving"] = counts32[name]
         if name in SERVING_NAMES:     # the HQ shapes' numbers (phase 7)
             entry["hq"] = {label: {k: v for k, v in hres[label][name].items()
@@ -2721,8 +2718,7 @@ def main():
                          "queries", "keys")}
         kernels.append(entry)
     kernels.append({
-        "name": "raft_conv", "route": "cuda", "source": CSRC + "raft_conv.cu",
-        # C2 replaces no TPU kernel: the JAX package has no RAFT
+        "name": "raft_conv", "route": "cuda", "source": CSRC + "conv.cu",
         "replaces": None, "launches_propainter": pcounts["raft_conv"],
         "max_abs_err_f64": max(rres["max_abs_err_f64"], rres["n6"]),
         **{k: rres[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

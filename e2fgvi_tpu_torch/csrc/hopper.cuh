@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: the bf16 K3
 // (focal_attention.cu), E2 (band_attention.cu), K1 in both dtypes
-// (deform.cu), C1 (conv.cu) and C2 (raft_conv.cu).
+// (deform.cu) and C (conv.cu).
 //
 // - mbarriers with a wait that traps after ~2^33 clocks, so a broken
 //   pipeline fails the launch instead of hanging the card;

@@ -39,9 +39,7 @@ _SIGNATURES = {
     "e2fgvi_row_gather": [_I, _I] + [_P] * 3 + [_I] * 4 + [_P],
     "e2fgvi_bilinear4_sample": [_P] * 5 + [_I] * 6 + [_P],
     "e2fgvi_band_attention": [_P] * 6 + [_I] * 12 + [_F, _I, _P],
-    "e2fgvi_conv3x3": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    "e2fgvi_raft_conv": [_P, _I, _P, _P, _P, _I, _P, _I, _P, _I] + [_I] * 10
-    + [_I, _P],
+    "e2fgvi_conv": [_P, _F, _I, _P],
 }
 
 

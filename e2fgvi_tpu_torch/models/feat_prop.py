@@ -4,9 +4,9 @@ Counterpart of e2fgvi_tpu/models/feat_prop.py (reference
 model/modules/feat_prop.py). The recurrence is a Python loop. Deformable
 alignment runs through K1 and every warp through K2 (kernels/deform.py),
 and in float32 the 3x3 convolutions of the offset head and the backbone
-through C1 (kernels/conv.py), with their LeakyReLU and the backbone's
-residual add; in bfloat16 those are cuDNN's (ops.convs.conv2d). On CPU
-tensors every kernel takes its plain version.
+through C (kernels/conv.py conv3x3), with their LeakyReLU and the
+backbone's residual add; in bfloat16 those are cuDNN's (ops.convs.conv2d).
+On CPU tensors every kernel takes its plain version.
 
 Parameter names follow the released checkpoint:
 feat_prop_module.deform_align.{backward_,forward_}.{weight,bias,conv_offset},
@@ -15,9 +15,10 @@ feat_prop_module.backbone.{backward_,forward_}, feat_prop_module.fusion.
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from e2fgvi_tpu_torch.kernels import conv as c1
+from e2fgvi_tpu_torch.kernels import conv as kconv
 from e2fgvi_tpu_torch.kernels.deform import (conv_operands, flow_warp,
                                              modulated_deform_conv2d_head)
 from e2fgvi_tpu_torch.ops.convs import conv2d
@@ -31,25 +32,34 @@ LEAKY = 0.1
 
 def conv3x3(x, conv, operands=None, negative_slope=None, residual=None):
     """One of the propagation's 3x3 convolutions (an nn.Conv2d's weight and
-    bias) with its epilogue: C1 (kernels.conv.conv3x3) for float32 CUDA
-    tensors, which launches or raises; for bfloat16 ones (cuDNN on the
-    tensor cores) and CPU tensors of any width, C1's plain version,
-    ops.convs.conv2d and the epilogue."""
-    if x.is_cuda and x.dtype == torch.float32:
-        return c1.conv3x3(x, conv.weight, conv.bias,
-                          negative_slope=negative_slope, residual=residual,
-                          operands=operands)
-    return c1.conv3x3_plain(x, conv.weight, conv.bias, residual,
-                            negative_slope)
+    bias) with its epilogue: for float32 CUDA tensors C (kernels.conv.
+    conv3x3), which launches or raises, x and the weight taking zero
+    channels up to a multiple of 4 (ProPainter's Cin 261 and 258; E2FGVI's
+    widths need none) and a residual that is a frame's slice of a window
+    copied whole; for bfloat16 ones (cuDNN on the tensor cores) and CPU
+    tensors, C's plain form, ops.convs.conv2d and the epilogue."""
+    weight = conv.weight
+    act = "none" if negative_slope is None else "leaky"
+    if not (x.is_cuda and x.dtype == torch.float32):
+        return kconv.conv_plain(x, weight, conv.bias, residual, act,
+                                negative_slope)
+    pad = -x.shape[-1] % 4
+    if pad:
+        x = F.pad(x, (0, pad))
+        weight = F.pad(weight, (0, 0, 0, 0, 0, pad))
+    return kconv.conv3x3(x.contiguous(), weight, conv.bias,
+                         negative_slope=negative_slope,
+                         residual=None if residual is None
+                         else residual.contiguous(), operands=operands)
 
 
 def conv3x3_operands(convs, x):
-    """C1's weight and bias of each of `convs` (kernels.conv.conv_operands)
-    for float32 CUDA inputs like x, made once for all of a pass's steps;
-    Nones elsewhere."""
+    """C's operands of each of `convs` (kernels.conv.conv_operands) for
+    float32 CUDA inputs like x, made once for all of a pass's steps; Nones
+    elsewhere."""
     if not (x.is_cuda and x.dtype == torch.float32):
         return [None] * len(convs)
-    return [c1.conv_operands(c.weight, c.bias) for c in convs]
+    return [kconv.conv_operands(c.weight, c.bias) for c in convs]
 
 
 class SecondOrderDeformableAlignment(nn.Module):

@@ -38,11 +38,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from e2fgvi_tpu_torch.kernels import conv as c1
 from e2fgvi_tpu_torch.kernels.deform import (conv_operands, flow_warp,
                                              modulated_deform_conv2d_head)
 from e2fgvi_tpu_torch.kernels.focal_attention import focal_attention
-from e2fgvi_tpu_torch.models import e2fgvi, tfocal
+from e2fgvi_tpu_torch.models import e2fgvi, feat_prop, tfocal
 from e2fgvi_tpu_torch.ops.convs import layer_norm, linear
 from e2fgvi_tpu_torch.ops.resize import resize_bilinear
 
@@ -284,29 +283,10 @@ def subvideo_spans(length, sub=SUBVIDEO, pad=SUBVIDEO_PAD):
 # Feature propagation
 # ---------------------------------------------------------------------------
 
-def _conv3x3(x, conv, negative_slope=None, residual=None):
-    """A propagation conv with its epilogue. Float32 CUDA tensors take C1
-    (kernels.conv.conv3x3, which launches or raises): where Cin is not a
-    multiple of 4 (ProPainter's 261 and 258), x gains zero channels and
-    the weight zero input channels up to one, and a residual that is a
-    frame's slice of the window is copied whole. Bfloat16 CUDA tensors
-    (cuDNN on the tensor cores) and CPU tensors take C1's plain version,
-    as feat_prop.conv3x3 does."""
-    weight = conv.weight
-    if x.is_cuda and x.dtype == torch.float32:
-        pad = -x.shape[-1] % 4
-        if pad:
-            x = F.pad(x, (0, pad))
-            weight = F.pad(weight, (0, 0, 0, 0, 0, pad))
-        if residual is not None:
-            residual = residual.contiguous()
-        return c1.conv3x3(x.contiguous(), weight, conv.bias,
-                          negative_slope=negative_slope, residual=residual)
-    return c1.conv3x3_plain(x, weight, conv.bias, residual, negative_slope)
-
-
 def _pair_forward(seq, x, residual=None):
-    return _conv3x3(_conv3x3(x, seq[0], 0.2), seq[2], residual=residual)
+    return feat_prop.conv3x3(
+        feat_prop.conv3x3(x, seq[0], negative_slope=0.2), seq[2],
+        residual=residual)
 
 
 def feature_propagation(module, x, flows_f, flows_b, masks, valid_len=None):
@@ -348,7 +328,8 @@ def feature_propagation(module, x, flows_f, flows_b, masks, valid_len=None):
                 feat = torch.cat([cur, warped, fp.to(dt), valid.to(dt), mcur],
                                  -1)
                 for k, conv in enumerate(offset_convs):
-                    feat = _conv3x3(feat, conv, 0.1 if k < 3 else None)
+                    feat = feat_prop.conv3x3(
+                        feat, conv, negative_slope=0.1 if k < 3 else None)
                 aligned = modulated_deform_conv2d_head(
                     prop, feat, fp, fp, align.weight, align.bias,
                     max_residue=MAX_RESIDUE, operands=operands)

@@ -17,7 +17,7 @@ Parameter names are the released raft-things.pth's (without its
 them, in [-1, 1], as ProPainter hands them over. Every product runs in
 float32 with TF32 off (utils/env.py), as ProPainter keeps RAFT in full
 precision under --fp16: on the card the iterations' convolutions run on
-C2 (kernels/raft_conv.py, 3xTF32), the rest on cuBLAS in float32.
+C (kernels/conv.py raft_conv, 3xTF32), the rest on cuBLAS in float32.
 `video_flows` runs each frame's encoders once for the two pairs it
 belongs to.
 """
@@ -26,8 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from e2fgvi_tpu_torch.kernels import raft_conv as rc
-from e2fgvi_tpu_torch.kernels.raft_conv import conv_gemm
+from e2fgvi_tpu_torch.kernels import conv as kconv
 from e2fgvi_tpu_torch.utils.timing import NO_SPANS
 
 HIDDEN_DIM = 128
@@ -129,9 +128,28 @@ class RAFT(nn.Module):
 # Forward, channel-last (N, H, W, C) float32
 # ---------------------------------------------------------------------------
 
+def conv_gemm(x, weight, bias, stride, padding):
+    """A convolution as one GEMM: the (ky, kx, c) patches of the
+    zero-padded channel-last x gathered into rows (a strided view, one
+    copy), times the weight reordered to match. x (N, H, W, Cin); weight
+    (Cout, Cin, kh, kw); padding (ph, pw). -> (N, Ho, Wo, Cout)."""
+    n, h, w, cin = x.shape
+    cout, _, kh, kw = weight.shape
+    ph, pw = padding
+    ho = (h + 2 * ph - kh) // stride + 1
+    wo = (w + 2 * pw - kw) // stride + 1
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    sn, sh, sw, sc = xp.stride()
+    patches = xp.as_strided((n, ho, wo, kh, kw, cin),
+                            (sn, sh * stride, sw * stride, sh, sw, sc))
+    wm = weight.permute(0, 2, 3, 1).reshape(cout, kh * kw * cin)
+    y = F.linear(patches.reshape(n * ho * wo, kh * kw * cin), wm, bias)
+    return y.reshape(n, ho, wo, cout)
+
+
 def _conv(x, conv, stride=1, padding=None):
     """The encoders' convolutions and convf1 (7x7 on 2 channels, too few
-    for C2's TMA rows), on every device one GEMM each (conv_gemm): on the
+    for C's TMA rows), on every device one GEMM each (conv_gemm): on the
     card cuBLAS in float32, where cuDNN's float32 picks (TF32 off) take FFT
     paths at a fifth of that speed."""
     if padding is None:
@@ -207,7 +225,7 @@ def corr_lookup(levels, coords):
 
 
 # The update block's state, one channel-last (N, h, w, 512) buffer a
-# refine: the convolutions read and write channel ranges of it (C2 takes
+# refine: the convolutions read and write channel ranges of it (C takes
 # inputs and outputs at any pixel pitch) where RAFT concatenates
 # [c, f], x = [inp, motion, flow], [net, x] and [r * net, x].
 NET, INP, MOTION, FLOW, RNET = (slice(0, 128), slice(128, 256),
@@ -219,20 +237,22 @@ STATE = 512
 
 
 def update_operands(ub):
-    """C2's operands (kernels/raft_conv.py) of every convolution of the
-    iterations and the mask head but convf1, made once a refine: the z and
-    r convolutions of each GRU half stacked (Cout 256), the q convolutions'
-    input channels rotated from [r * net, x] to the state's [x, r * net]."""
+    """C's operands (kernels/conv.py conv_operands) of every convolution
+    of the iterations and the mask head but convf1, made once a refine: the
+    z and r convolutions of each GRU half stacked (Cout 256), the q
+    convolutions' input channels rotated from [r * net, x] to the state's
+    [x, r * net]."""
     me, g, fh = ub.encoder, ub.gru, ub.flow_head
     convs = {"convc1": me.convc1, "convc2": me.convc2, "convf2": me.convf2,
              "conv": me.conv, "fh1": fh.conv1, "fh2": fh.conv2,
              "mask0": ub.mask[0], "mask2": ub.mask[2]}
-    ops = {k: rc.conv_operands(m.weight, m.bias) for k, m in convs.items()}
+    ops = {k: kconv.conv_operands(m.weight, m.bias)
+           for k, m in convs.items()}
     for i in (1, 2):
         z, r, q = (getattr(g, f"conv{a}{i}") for a in "zrq")
-        ops[f"zr{i}"] = rc.conv_operands(torch.cat([z.weight, r.weight]),
-                                         torch.cat([z.bias, r.bias]))
-        ops[f"q{i}"] = rc.conv_operands(
+        ops[f"zr{i}"] = kconv.conv_operands(
+            torch.cat([z.weight, r.weight]), torch.cat([z.bias, r.bias]))
+        ops[f"q{i}"] = kconv.conv_operands(
             torch.cat([q.weight[:, HIDDEN_DIM:], q.weight[:, :HIDDEN_DIM]],
                       1), q.bias)
     return ops
@@ -245,20 +265,21 @@ def update(ub, ops, state, corr):
     RNET and the new hidden state over NET. ops: update_operands(ub).
     Returns the delta flow (N, h, w, 2)."""
     n, h, w, _ = state.shape
-    c = rc.raft_conv(corr, ops["convc1"], "relu")
+    c = kconv.raft_conv(corr, ops["convc1"], "relu")
     cf = state.new_empty((n, h, w, 256))                    # [c, f]
-    rc.raft_conv(c, ops["convc2"], "relu", out=cf[..., :192])
+    kconv.raft_conv(c, ops["convc2"], "relu", out=cf[..., :192])
     f = F.relu(_conv(state[..., FLOW], ub.encoder.convf1))
-    rc.raft_conv(f, ops["convf2"], "relu", out=cf[..., 192:])
-    rc.raft_conv(cf, ops["conv"], "relu", out=state[..., MOTION])
+    kconv.raft_conv(f, ops["convf2"], "relu", out=cf[..., 192:])
+    kconv.raft_conv(cf, ops["conv"], "relu", out=state[..., MOTION])
     z = state.new_empty((n, h, w, HIDDEN_DIM))
     net = state[..., NET]
     for i in (1, 2):
-        rc.raft_conv(state[..., HX], ops[f"zr{i}"], "zr",
-                     out=state[..., RNET], net=net, z=z)
-        rc.raft_conv(state[..., XR], ops[f"q{i}"], "gru", out=net, net=net,
-                     z=z)
-    return rc.raft_conv(rc.raft_conv(net, ops["fh1"], "relu"), ops["fh2"])
+        kconv.raft_conv(state[..., HX], ops[f"zr{i}"], "zr",
+                        out=state[..., RNET], net=net, z=z)
+        kconv.raft_conv(state[..., XR], ops[f"q{i}"], "gru", out=net,
+                        net=net, z=z)
+    return kconv.raft_conv(kconv.raft_conv(net, ops["fh1"], "relu"),
+                           ops["fh2"])
 
 
 def upsample_flow(flow, mask):
@@ -280,8 +301,8 @@ def refine(raft, fmap1, fmap2, net, inp, iters=ITERS, spans=NO_SPANS):
     utils.timing.StageTimer, which records the spans raft_corr (the
     volume and its pyramid) and raft_update (the iterations and the
     upsampling) and counts raft_iterations (one a field an iteration).
-    The iterations' convolutions and the mask head run on C2
-    (kernels/raft_conv.py) but convf1; the encoders stay on conv_gemm."""
+    The iterations' convolutions and the mask head run on C (kernels/
+    conv.py raft_conv) but convf1; the encoders stay on conv_gemm."""
     spans.begin("raft_corr")
     levels = corr_pyramid(fmap1, fmap2)
     spans.mark("raft_corr", "raft_update")
@@ -300,8 +321,8 @@ def refine(raft, fmap1, fmap2, net, inp, iters=ITERS, spans=NO_SPANS):
         corr = corr_lookup(levels, coords1)
         state[..., FLOW] = coords1 - coords0
         coords1 = coords1 + update(ub, ops, state, corr)
-    m = rc.raft_conv(state[..., NET], ops["mask0"], "relu")
-    mask = 0.25 * rc.raft_conv(m, ops["mask2"])
+    m = kconv.raft_conv(state[..., NET], ops["mask0"], "relu")
+    mask = 0.25 * kconv.raft_conv(m, ops["mask2"])
     flow = upsample_flow(coords1 - coords0, mask)
     spans.count("raft_iterations", iters * n)
     spans.end("raft_update")

@@ -14,10 +14,10 @@ Inside a call the timer also counts, where the build has CUDA:
 sync debug mode set to "warn" for the call, its warnings counted),
 `device_alloc_calls`, the caching allocator's calls to the driver
 (`num_device_alloc + num_device_free` of its statistics),
-`conv_launches`, the launches of C1, the float32 3x3 convolution kernel
-(kernels/conv.py `LAUNCHES`), and `raft_conv_launches`, the launches of
-C2, RAFT's update-block convolution kernel (kernels/raft_conv.py
-`LAUNCHES`). Each is read at every span boundary and
+`conv_launches` and `raft_conv_launches`, the launches of C, the float32
+convolution kernel, by feat_prop's and by RAFT's entry point
+(kernels/conv.py `LAUNCHES["conv3x3"]` and `["raft_conv"]`). Each is read
+at every span boundary and
 charged to the innermost open span. The program adds counts of its own
 with `count` (ProPainter's `raft_iterations`, `attn_rows_flagged` and
 `attn_rows_frame`), charged likewise. Spans and counts stay in memory
@@ -172,11 +172,10 @@ class StageTimer:
         warnings.showwarning = showwarning
         torch.cuda.set_sync_debug_mode("warn")
         stack.callback(torch.cuda.set_sync_debug_mode, mode)
-        from e2fgvi_tpu_torch.kernels import conv, raft_conv
+        from e2fgvi_tpu_torch.kernels import conv
         readers = {"host_syncs": lambda: self._syncs,
                    "conv_launches": lambda: conv.LAUNCHES["conv3x3"],
-                   "raft_conv_launches":
-                       lambda: raft_conv.LAUNCHES["raft_conv"]}
+                   "raft_conv_launches": lambda: conv.LAUNCHES["raft_conv"]}
         if "num_device_alloc" in torch.cuda.memory_stats_as_nested_dict():
             readers["device_alloc_calls"] = _alloc_calls
         return readers

@@ -387,7 +387,7 @@ def test_kernel_functions_give_the_plain_gradients(gen):
 
 
 # ---------------------------------------------------------------------------
-# C1: feat_prop's float32 3x3 convolutions
+# C (kernels/conv.py conv3x3): feat_prop's float32 3x3 convolutions
 
 # (Cin, Cout, epilogue) as feat_prop runs them: the offset head's four, the
 # backbone's two (256 backward, 384 forward, then 128 with the residual)
@@ -415,9 +415,10 @@ def _c1_inputs(gen, n, h, w, cin, cout, epilogue):
 
 def _c1_plain(x, wt, b, kw, dtype=torch.float32):
     r = kw.get("residual")
-    return conv.conv3x3_plain(x.to(dtype), wt.to(dtype), b.to(dtype),
-                              None if r is None else r.to(dtype),
-                              kw.get("negative_slope"))
+    slope = kw.get("negative_slope")
+    return conv.conv_plain(x.to(dtype), wt.to(dtype), b.to(dtype),
+                           None if r is None else r.to(dtype),
+                           "none" if slope is None else "leaky", slope)
 
 
 @pytest.mark.parametrize("conv_name", list(_C1_CONVS))
@@ -472,12 +473,13 @@ def test_conv3x3_does_not_synchronize(gen):
 
 
 def test_conv3x3_refuses_what_it_does_not_take(gen):
-    """bfloat16 and shapes outside the contract raise ValueError for CUDA
-    tensors too: no fallback to cuDNN."""
+    """bfloat16 and shapes outside the contract (an odd Cout: the epilogue
+    stores column pairs) raise ValueError for CUDA tensors too: no
+    fallback to cuDNN."""
     x, wt, b, _ = _c1_inputs(gen, 1, 5, 7, 64, 128, "none")
     before = conv.LAUNCHES["conv3x3"]
     for bad in ((x.bfloat16(), wt.bfloat16(), b.bfloat16()),
-                (x, wt[:96], b[:96]), (x[..., :62].contiguous(),
+                (x, wt[:95], b[:95]), (x[..., :62].contiguous(),
                                        wt[:, :62].contiguous(), b),
                 (x.transpose(1, 2).contiguous().transpose(1, 2), wt, b)):
         with pytest.raises(ValueError):
@@ -527,7 +529,7 @@ def test_conv3x3_function_gives_the_plain_gradients(gen):
     assert out.grad_fn is not None
     assert torch.equal(out.detach(), conv.conv3x3(x, wt, b, residual=r))
     out.backward(ct)
-    want = _grads(lambda *a: conv.conv3x3_plain(*a), (x, wt, b, r), ct)
+    want = _grads(lambda *a: conv.conv_plain(*a), (x, wt, b, r), ct)
     for t, w_ in zip(leaves, want):
         torch.testing.assert_close(t.grad, w_, rtol=1e-5, atol=1e-5)
 
@@ -539,7 +541,7 @@ def test_conv3x3_refuses_grad(gen):
     x, wt, b, _ = _c1_inputs(gen, 1, 4, 5, 32, 128, "none")
     xg = x.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="forward-only.*autograd"):
-        conv.conv3x3_kernel(xg, wt, b)
+        conv.launch(xg, conv.conv_operands(wt, b), counter="conv3x3")
     assert conv.conv3x3(xg, wt, b).grad_fn is not None
     with torch.no_grad():
         assert conv.conv3x3(x, wt, b).grad_fn is None

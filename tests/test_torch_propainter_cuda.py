@@ -1,8 +1,9 @@
 """ProPainter's pieces of the port on the card: K1 at Cin 128 (16 groups
 of 8 channels) in both dtypes, the float32 feature propagation with every
-convolution on C1, K3 on the sparse transformer's flagged rows, C2 at each
-of RAFT's covered convolutions and in a whole refine, and the whole
-serving call under sync debug mode "error".
+convolution on C (kernels/conv.py conv3x3), K3 on the sparse transformer's
+flagged rows, C at each of RAFT's covered convolutions (raft_conv) and in
+a whole refine, and the whole serving call under sync debug mode
+"error".
 
 CUDA kernels have no CPU mode, so these tests skip where CUDA is absent.
 On a machine with an H100 and nvcc:
@@ -69,9 +70,9 @@ def test_k1_cin128_matches_plain(gen, dtype, size):
 
 def test_feature_propagation_f32_runs_every_conv_on_c1(gen):
     """In float32 on the card every convolution of the propagation takes
-    C1, those of Cin 261 and 258 on zero-padded channels, and the result
+    C, those of Cin 261 and 258 on zero-padded channels, and the result
     is the CPU's plain propagation's: 4 frames, two batch elements."""
-    from e2fgvi_tpu_torch.kernels import conv as c1
+    from e2fgvi_tpu_torch.kernels import conv
     from e2fgvi_tpu_torch.models import propainter
     torch.manual_seed(0)
     mod = propainter.BidirectionalPropagation().eval()
@@ -87,11 +88,12 @@ def test_feature_propagation_f32_runs_every_conv_on_c1(gen):
     ff = _randn(gen, 2, t - 1, h, w, 2, std=1.5)
     fb = -ff + _randn(gen, 2, t - 1, h, w, 2, std=0.3)
     m = (_randn(gen, 2, t, h, w, 2) > 0.5).float()
-    before = c1.LAUNCHES["conv3x3"]
+    before = conv.LAUNCHES["conv3x3"]
     with torch.inference_mode():
         got = propainter.feature_propagation(mod.cuda(), x, ff, fb, m)
         # each pass: 2 backbone convs a frame, 4 offset convs a step; fuse 2
-        assert c1.LAUNCHES["conv3x3"] - before == 2 * (2 * t + 4 * (t - 1)) + 2
+        assert conv.LAUNCHES["conv3x3"] - before == \
+            2 * (2 * t + 4 * (t - 1)) + 2
         want = propainter.feature_propagation(
             mod.cpu(), *(v.cpu() for v in (x, ff, fb, m)))
     err = (got.cpu() - want).abs().max() / want.abs().max()
@@ -189,11 +191,11 @@ def test_propainter_call_does_not_synchronize(gen, monkeypatch):
     assert diff.max() <= 1 and diff.mean() < 1e-2
 
 
-# C2 (kernels/raft_conv.py): each of RAFT's covered convolutions (models/
-# raft.py update_operands' names) at 848x480's 60x106 grid, on a chunk of
-# FIELD_CHUNK = 16 fields and a ragged chunk of 6, in the state buffer's
-# channel ranges where update() uses them; held to float64 as C1 is
-# (chip_smoke.C1_MAX_ABS_F64)
+# C (kernels/conv.py raft_conv): each of RAFT's covered convolutions
+# (models/raft.py update_operands' names) at 848x480's 60x106 grid, on a
+# chunk of FIELD_CHUNK = 16 fields and a ragged chunk of 6, in the state
+# buffer's channel ranges where update() uses them; held to float64 as
+# feat_prop's are (chip_smoke.C_MAX_ABS_F64)
 C2_MAX_ABS_F64 = 1e-5
 RAFT_GRID = (60, 106)
 C2_ACTS = {"zr1": "zr", "zr2": "zr", "q1": "gru", "q2": "gru",
@@ -230,22 +232,21 @@ def c2_args(gen, act, cin, cout, n, h, w):
 @pytest.mark.parametrize("n", [16, 6])
 @pytest.mark.parametrize("name", C2_CONVS)
 def test_raft_conv_matches_float64(gen, raft_ops, name, n):
-    """C2 against its plain version in float64 (conv_gemm and the
+    """C against its plain form in float64 (ops.convs.conv2d and the
     epilogue) at RAFT's 848x480 shapes: within C2_MAX_ABS_F64, one launch,
     the state buffer's other channels untouched."""
-    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    from e2fgvi_tpu_torch.kernels import conv
     ops, act = raft_ops[name], C2_ACTS.get(name, "relu")
     cout, cin = ops.weight.shape[:2]
     args = c2_args(gen, act, cin, cout, n, *RAFT_GRID)
     ref = {k: v.double() for k, v in args.items() if k != "out"}
     whole = args["x"]._base if args["x"]._base is not None else None
     before_buf = None if whole is None else whole.clone()
-    before = rc.LAUNCHES["raft_conv"]
-    got = rc.raft_conv(ops=ops, act=act, **args)
-    assert rc.LAUNCHES["raft_conv"] == before + 1
-    want = rc.raft_conv_plain(ref["x"], ops.weight.double(),
-                              ops.bias.double(), act, ref.get("net"),
-                              ref.get("z"))
+    before = conv.LAUNCHES["raft_conv"]
+    got = conv.raft_conv(ops=ops, act=act, **args)
+    assert conv.LAUNCHES["raft_conv"] == before + 1
+    want = conv.conv_plain(ref["x"], ops.weight.double(), ops.bias.double(),
+                           act=act, net=ref.get("net"), z=ref.get("z"))
     if act == "zr":
         wz, want = want
         assert (args["z"].double() - wz).abs().max() <= C2_MAX_ABS_F64
@@ -260,20 +261,20 @@ def test_raft_conv_matches_float64(gen, raft_ops, name, n):
 
 def test_raft_conv_does_not_synchronize(gen, raft_ops):
     """A launch of each epilogue under sync debug mode "error"."""
-    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    from e2fgvi_tpu_torch.kernels import conv
     calls = [(name, c2_args(gen, C2_ACTS.get(name, "relu"),
                             raft_ops[name].weight.shape[1],
                             raft_ops[name].weight.shape[0], 2, 20, 40))
              for name in ("convc1", "zr1", "q2", "fh2")]
     for name, args in calls:                 # the library built and loaded
-        rc.raft_conv(ops=raft_ops[name], act=C2_ACTS.get(name, "relu"),
-                     **args)
+        conv.raft_conv(ops=raft_ops[name], act=C2_ACTS.get(name, "relu"),
+                       **args)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for name, args in calls:
-            rc.raft_conv(ops=raft_ops[name], act=C2_ACTS.get(name, "relu"),
-                         **args)
+            conv.raft_conv(ops=raft_ops[name],
+                           act=C2_ACTS.get(name, "relu"), **args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -281,10 +282,12 @@ def test_raft_conv_does_not_synchronize(gen, raft_ops):
 
 def test_refine_on_c2_matches_the_conv_gemm_path(gen, monkeypatch):
     """One refine of 4 seeded fields at 848x480 (the benchmark's seeded
-    RAFT weights, 20 iterations) on C2 against the same refine with every
-    convolution on its plain version (conv_gemm: cuBLAS float32, TF32
-    off): each field's mean endpoint error within 1e-4 px."""
-    from e2fgvi_tpu_torch.kernels import raft_conv as rc
+    RAFT weights, 20 iterations) on C against the same refine with every
+    convolution on raft.conv_gemm and the epilogue (chip_smoke.gemm_call:
+    cuBLAS float32, TF32 off): each field's mean endpoint error within
+    1e-4 px."""
+    from chip_smoke import gemm_call
+    from e2fgvi_tpu_torch.kernels import conv
     from e2fgvi_tpu_torch.models import raft
     bench = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "perfbench")
@@ -306,10 +309,10 @@ def test_refine_on_c2_matches_the_conv_gemm_path(gen, monkeypatch):
         args = (torch.cat([fmap[:2], fmap[1:]]),
                 torch.cat([fmap[1:], fmap[:2]]),
                 torch.cat([net[:2], net[1:]]), torch.cat([inp[:2], inp[1:]]))
-        before = rc.LAUNCHES["raft_conv"]
+        before = conv.LAUNCHES["raft_conv"]
         got = raft.refine(r, *args)
-        assert rc.LAUNCHES["raft_conv"] - before == 10 * raft.ITERS + 2
-        monkeypatch.setattr(rc, "raft_conv", rc.plain_call)
+        assert conv.LAUNCHES["raft_conv"] - before == 10 * raft.ITERS + 2
+        monkeypatch.setattr(conv, "raft_conv", gemm_call)
         want = raft.refine(r, *args)
     assert float(want.abs().mean()) > 1.0          # real motion
     epe = (got - want).norm(dim=-1).mean(dim=(1, 2))

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from e2fgvi_tpu.utils import visualize as jvisualize
-from e2fgvi_tpu_torch.kernels import conv, raft_conv
+from e2fgvi_tpu_torch.kernels import conv
 from e2fgvi_tpu_torch.utils import profiling, timing, visualize
 
 
@@ -152,7 +152,7 @@ def test_stage_timer_without_cuda_counts_nothing(host_clock, monkeypatch):
 def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
     cuda = FakeCuda(monkeypatch, mode=1)
     monkeypatch.setitem(conv.LAUNCHES, "conv3x3", 0)
-    monkeypatch.setitem(raft_conv.LAUNCHES, "raft_conv", 0)
+    monkeypatch.setitem(conv.LAUNCHES, "raft_conv", 0)
     t = timing.StageTimer()
     with t.video(torch.device("cpu")):
         assert cuda.set_calls == ["warn"]
@@ -169,7 +169,7 @@ def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
         cuda.sync()
         t.mark("encode", "flows")
         cuda.allocs += 1
-        raft_conv.LAUNCHES["raft_conv"] += 5
+        conv.LAUNCHES["raft_conv"] += 5
         t.end("flows")
         cuda.sync()              # outside every span: in the sum only
     assert cuda.set_calls == ["warn", 1]
