@@ -20,7 +20,7 @@ Phases, one line each (any failed check raises and exits nonzero):
               staged kernel of E5/E6 (band_staged_kernel) and of E1 (its
               CPair instantiation) must stage by LDGSTS or UTMALDG and
               read its corners by LDS (executable ones: cp.async's
-              never-taken @!PT LDS padding does not count); C (its nine
+              never-taken @!PT LDS padding does not count); C (its ten
               tap geometry and N-tile instantiations) must hold TF32 HGMMA
               and UTMALDG and no HMMA, and ptxas must report 0 spill
               bytes for it
@@ -62,6 +62,13 @@ Phases, one line each (any failed check raises and exits nonzero):
               fields (20 iterations, the benchmark's seeded RAFT) on C and
               on the conv_gemm path: ms, plain_ms, bound, the worst
               field's mean endpoint error between them
+  3c. encoder C through encoder_conv (check_encoder) at the E2FGVI
+              encoder's seven stride-1 convolutions, a grouped one a
+              launch a group, on ENC_CHUNK (35) maps of 120x216 or 60x108:
+              against float64 and cuDNN float32 (TF32 off), device ms by
+              the profiler beside cuDNN's (the port's call before C), the
+              bound at the 3xTF32 rate and the share; then one encoder
+              call on 35 frames of 432x240 on C and on cuDNN
   4. golden   the generator in float32 with the kernels against
               tests/goldens/generator_base.npz
   5. serving  SlidingWindowInpainter (bfloat16, max_batch 14) on 3
@@ -69,7 +76,8 @@ Phases, one line each (any failed check raises and exits nonzero):
               batch against the float32 plain path on the CPU; then 2 more
               videos at the inpaint CLI's defaults (float32, max_batch 4),
               the second warm, with their frames/s, stage split and launch
-              counts
+              counts (C's encoder launches: 18 an encoder call in float32,
+              none in bfloat16)
   6. experiments  the seven kernels of the A/B experiments (E1-E6: banded
               sampler variants, row gather, 4-corner sampler,
               band-assembled attention) against their plain versions at
@@ -627,6 +635,125 @@ def check_conv(dev, entry, n, h, w, timed=True):
     return out
 
 
+def device_ms(fn, iters=5, launches=None):
+    """(profiler ms, events ms) of one call of fn: the profiler's device
+    self time of every operation over `iters` calls after a warm one,
+    averaged (cuda_ms's events around one call hold the wrapper's host
+    time); and CUDA events around `iters` calls back to back over iters,
+    which hold only device time where the device is the slower side.
+    launches: the kernel launches a call makes, where known; the
+    profiler's sum is then averaged over the launches it recorded: on the
+    H100 a session that follows one of cuDNN's FFT path (~25k launches a
+    call) can miss its first launches (4 of 5 recorded, 9 of 10). Under
+    the profiler cuDNN's FFT kernels also run 2-3x slower than the events
+    read them."""
+    import torch
+    from e2fgvi_tpu_torch.utils import profiling
+    fn()
+    with profiling.trace() as table:
+        for _ in range(iters):
+            fn()
+    if launches is not None:
+        iters_seen = sum(r["calls"] for r in table["top"]) / launches
+    else:
+        iters_seen = iters
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return table["busy_ms"] / iters_seen, a.elapsed_time(b) / iters
+
+
+def encoder_weights(enc, randn):
+    """Seeded weights that keep the encoder's activations near unit scale:
+    std (9 Cin_g)^-1/2, biases of 0.1."""
+    import torch
+    with torch.no_grad():
+        for m in enc.layers[::2]:
+            cout, cin = m.weight.shape[:2]
+            m.weight.copy_(randn(cout, cin, 3, 3, std=(9 * cin) ** -0.5))
+            m.bias.copy_(randn(cout, std=0.1))
+    return enc
+
+
+def check_encoder(dev):
+    """C through encoder_conv at the E2FGVI encoder's seven stride-1
+    convolutions (a grouped one a launch a group) on ENC_CHUNK maps of
+    432x240's 120x216 (layer 1) or 60x108, seeded weights: each against
+    float64 (C_MAX_ABS_F64) and cuDNN float32 with TF32 off, the port's
+    call before C (ops.convs.conv2d, then LeakyReLU: F32_MAX_ABS
+    ["conv3x3"]); device ms of each by the profiler (device_ms; by CUDA
+    events beside it, events_ms) beside cuDNN's (library_ms,
+    library_events_ms), the bound at the 3xTF32 rate and the share, and
+    their sums; then one whole encoder call on ENC_CHUNK frames of 432x240
+    on C and with every layer on cuDNN (encoder_ms, encoder_library_ms)."""
+    import torch
+    import torch.nn.functional as F
+    from e2fgvi_tpu_torch.data.pipeline import ENC_CHUNK
+    from e2fgvi_tpu_torch.kernels import conv
+    from e2fgvi_tpu_torch.models import e2fgvi
+    from e2fgvi_tpu_torch.ops.convs import conv2d, leaky_relu
+    randn = _randn_fn(dev, seed=11)
+    n, res = ENC_CHUNK, {}
+    enc = encoder_weights(e2fgvi.Encoder().to(dev), randn)
+    with torch.inference_mode():
+        for i, (cin, cout, stride, groups) in enumerate(e2fgvi._ENC_PLAN):
+            if stride != 1:
+                continue
+            h, w = (120, 216) if i == 1 else (60, 108)
+            x = randn(n, h, w, cin)
+            wt = randn(cout, cin // groups, 3, 3,
+                       std=(9 * cin / groups) ** -0.5)
+            b = randn(cout, std=0.1)
+            ops = conv.group_operands(wt, b, groups)
+
+            def c_call():
+                return conv.encoder_conv(x, ops, 0.2)
+
+            def cudnn():
+                return leaky_relu(conv2d(x, wt, b, padding=1, groups=groups),
+                                  0.2)
+            before = conv.LAUNCHES["encoder"]
+            got = c_call()
+            if conv.LAUNCHES["encoder"] != before + groups:
+                raise AssertionError(f"encoder layer {i}: not {groups} "
+                                     f"launches")
+            want64 = F.leaky_relu(F.conv2d(
+                x.double().permute(0, 3, 1, 2), wt.double(), b.double(),
+                padding=1, groups=groups), 0.2).permute(0, 2, 3, 1)
+            e = {"shape": [n, h, w, cin, cout], "groups": groups,
+                 "bn": ops[0].bn,
+                 "max_abs_err": float((got - cudnn()).abs().max()),
+                 "max_abs_err_f64": float((got.double() - want64).abs().max())}
+            del got, want64
+            if not (e["max_abs_err"] <= F32_MAX_ABS["conv3x3"]
+                    and e["max_abs_err_f64"] <= C_MAX_ABS_F64):
+                raise AssertionError(f"encoder layer {i}: {e}")
+            e["ms"], e["events_ms"] = device_ms(c_call, launches=groups)
+            e["library_ms"], e["library_events_ms"] = device_ms(cudnn)
+            flops = 2 * n * h * w * cout * (cin // groups) * 9
+            e["bound_ms"] = flops / (PEAK_FLOPS["tf32"] / 3) * 1e3
+            e["share"] = e["bound_ms"] / e["ms"]
+            res[f"layer{i}"] = e
+            log(f"encoder_conv layer{i}: " + json.dumps(e))
+            del x, ops
+        out = {"n": n, "convs": res,
+               **{key: sum(e[key] for e in res.values())
+                  for key in ("ms", "events_ms", "library_ms",
+                              "library_events_ms", "bound_ms")}}
+        out["share"] = out["bound_ms"] / out["ms"]
+        x = randn(n, 240, 432, 3)
+        out["encoder_ms"], _ = device_ms(lambda: enc(x))
+        enc.kernel_operands = lambda x: {}          # every layer on cuDNN
+        out["encoder_library_ms"], _ = device_ms(lambda: enc(x))
+        del enc, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def k1k2_inputs(randn, b, h, w):
     """K1's and K2's float32 inputs on b quarter-res maps of h x w: the
     flows, K1's (x, head, weight, bias) and K2's 2b-map feature pair.
@@ -880,9 +1007,11 @@ def _counters(modules):
             for m in modules]
 
 
-def launch_counts(modules=SERVING_KERNELS, skip=("raft_conv",)):
+def launch_counts(modules=SERVING_KERNELS, skip=("raft_conv", "encoder")):
     """{entry point: launches} of the modules' counters but `skip`: by
-    default C's RAFT entry point, which E2FGVI never runs."""
+    default C's RAFT entry point, which E2FGVI never runs, and its encoder
+    entry point, which bfloat16 and training (grad mode) never run (serve
+    reads it apart)."""
     return {k: v for d in _counters(modules) for k, v in d.items()
             if k not in skip}
 
@@ -964,7 +1093,8 @@ def serve(model, dev, n_videos=3, t=70, timer_cls=None, max_batch=B,
     """The serving path: SlidingWindowInpainter on synthetic h x w videos,
     in the model's dtype."""
     import torch
-    from e2fgvi_tpu_torch.data.pipeline import SlidingWindowInpainter
+    from e2fgvi_tpu_torch.data.pipeline import (ENC_CHUNK,
+                                                SlidingWindowInpainter)
     inpainter = SlidingWindowInpainter(
         model, max_batch=max_batch, dtype=getattr(torch, dtype),
         out_dtype=np.uint8, device=dev)
@@ -989,13 +1119,18 @@ def serve(model, dev, n_videos=3, t=70, timer_cls=None, max_batch=B,
             raise AssertionError("output differs outside the mask")
         runs.append({"seconds": dt, "fps": t / dt, "stages_ms": stages})
     counts = launch_counts()
-    # C takes feat_prop's float32 convolutions; bfloat16 bypasses it
+    # C takes feat_prop's float32 convolutions and the encoder's stride-1
+    # ones (18 launches an encoder call of up to ENC_CHUNK frames);
+    # bfloat16 bypasses it
     c1 = counts.pop("conv3x3")
+    enc = launch_counts(skip=())["encoder"]
+    calls = n_videos * -(-t // ENC_CHUNK)
     if not all(v > 0 for v in counts.values()) or (
-            (c1 > 0) != (dtype == "float32")):
+            (c1 > 0) != (dtype == "float32")) or enc != (
+            18 * calls if dtype == "float32" else 0):
         raise AssertionError(f"serving missed a kernel: {counts}, C "
-                             f"{c1} in {dtype}")
-    counts["conv3x3"] = c1
+                             f"{c1} and encoder {enc} in {dtype}")
+    counts["conv3x3"], counts["encoder"] = c1, enc
     return runs, counts, videos[0]
 
 
@@ -2489,11 +2624,11 @@ def main():
             raise AssertionError(f"{label} does not stage its slab in "
                                  f"shared memory: {ops}")
     # C: 3xTF32 on TF32 wgmma fed by TMA, no mma.sync, no spills, in its
-    # nine instantiations (the mangled name's length prefix keeps out K1's
+    # ten instantiations (the mangled name's length prefix keeps out K1's
     # deform_conv_tf32_kernel)
     info = ptxas_info(nvcc_log, C_KERNEL)
     log(f"ptxas conv_tf32_kernel: {json.dumps(info)}")
-    if len(info) != 9 or any(i.get("spill_stores", 1) or
+    if len(info) != 10 or any(i.get("spill_stores", 1) or
                              i.get("spill_loads", 1) for i in info):
         raise AssertionError(f"C: spills or no ptxas report: {info}")
     hist = sass_histograms(lib_path, [C_KERNEL])[C_KERNEL]
@@ -2534,6 +2669,12 @@ def main():
     log("raft_conv refine: " + json.dumps(rres["refine"]))
     torch.cuda.empty_cache()
     t0 = phase_end("conv", t0)
+
+    # 3c. encoder: C through encoder_conv at the encoder's stride-1 layers
+    encres = check_encoder(dev)
+    log("encoder_conv: " + json.dumps({k: v for k, v in encres.items()
+                                       if k != "convs"}))
+    t0 = phase_end("encoder", t0)
 
     # 4. golden, float32 with the kernels
     model32 = golden_model("base", dev)
@@ -2723,6 +2864,16 @@ def main():
         "max_abs_err_f64": max(rres["max_abs_err_f64"], rres["n6"]),
         **{k: rres[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "share", "n", "map", "convs", "refine")}})
+    kernels.append({
+        "name": "encoder_conv", "route": "cuda", "source": CSRC + "conv.cu",
+        "replaces": None, "launches_f32_serving": counts32["encoder"],
+        "max_abs_err": max(e["max_abs_err"]
+                           for e in encres["convs"].values()),
+        "max_abs_err_f64": max(e["max_abs_err_f64"]
+                               for e in encres["convs"].values()),
+        **{k: encres[k] for k in ("ms", "events_ms", "library_ms",
+                                  "bound_ms", "share", "n", "encoder_ms",
+                                  "encoder_library_ms", "convs")}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -11,15 +11,22 @@
 //   (3x3, 128->64) and conv (3x3, 256->126), the separable GRU's 1x5 and
 //   5x1 z and r (stacked: 384->256) and q (384->128), the flow head's two
 //   3x3 (128->256, 256->2) and the mask head's 3x3 (128->256) and 1x1
-//   (256->576), reading and writing channel ranges of one state buffer.
+//   (256->576), reading and writing channel ranges of one state buffer;
+// * the E2FGVI encoder's seven stride-1 3x3 convolutions, with LeakyReLU
+//   (models/e2fgvi.py Encoder): 64->64 at 1/2 resolution, then 128->256,
+//   256->384 and 512->128 at 1/4, and the grouped 640->512 (2 groups),
+//   768->384 (4) and 640->256 (8) as one launch a group, each reading and
+//   writing its group's channel range of one input and one output.
 //
-// Replaces no TPU kernel: the JAX package left feat_prop's convolutions to
-// XLA and has no RAFT. On the card cuDNN ran feat_prop's in float32 (TF32
-// off) as FFT convolutions (complex-float32 GEMMs) at about 1% of the
-// 3xTF32 rate, three quarters of the f32 serving time; RAFT's ran as a pad
-// copy, a copy of the whole (kh*kw*Cin)-wide patch matrix and cuBLAS's
-// float32 GEMM (the SIMT FFMA path at 67 TFLOP/s at best), about four
-// fifths of ProPainter's serving time.
+// Replaces no TPU kernel: the JAX package left feat_prop's and the
+// encoder's convolutions to XLA and has no RAFT. On the card cuDNN ran
+// feat_prop's in float32 (TF32 off) as FFT convolutions (complex-float32
+// GEMMs) at about 1% of the 3xTF32 rate, three quarters of the f32 serving
+// time, and the encoder's the same way (the encode stage at 2.7% of that
+// rate, 44% of the f32 serving time once feat_prop was on C); RAFT's ran
+// as a pad copy, a copy of the whole (kh*kw*Cin)-wide patch matrix and
+// cuBLAS's float32 GEMM (the SIMT FFMA path at 67 TFLOP/s at best), about
+// four fifths of ProPainter's serving time.
 //
 // The GEMM: M = N*H*W output pixels x K = kh*kw*Cin x Cout. Precision as
 // the f32 K1 (deform.cu, namespace fused_tf32): each operand splits into
@@ -51,9 +58,10 @@
 //   m64n144 is a width wgmma takes, and 432 leaves no ragged tile; on the
 //   H100 a 128 -> 432 call took 0.26-0.28 ms at 60x108, N = 4, against
 //   0.30-0.31 for 128-wide tiles with a ragged fourth); 96 (192 = 2 x 96),
-//   64 and 8 (Cout 2). A ragged tile (126 on 128) stores only the columns
-//   below Cout. At 60x108 a map is 7 x 8 tiles (9.6% of the rows fall past
-//   the edges and are computed as zeros, not stored), 56 blocks a map: at
+//   64, 32 (the encoder's 8-group layer: 32 outputs a group) and 8 (Cout
+//   2). A ragged tile (126 on 128) stores only the columns below Cout. At
+//   60x108 a map is 7 x 8 tiles (9.6% of the rows fall past the edges and
+//   are computed as zeros, not stored), 56 blocks a map: at
 //   N = 4, 224 blocks on 132 SMs; at N = 1 the card is under half full
 //   (that 128 -> 432 call reads 35% of its bound there, 56-59% at N = 4).
 //   Smaller tiles would fill it but read the weight from L2 once more per
@@ -79,10 +87,10 @@
 //   and hands k-step kk channels 8t + 2kk (k-column t) and 8t + 2kk + 1
 //   (k-column t + 4). The sum over K is order-free, so B's columns are
 //   permuted to match on the host (kernels/conv.py conv_weight).
-// * B, the weight, reordered and split once per pass (feat_prop) or refine
-//   (RAFT) to (2, Cout_pad, kh * kw * Cin_pad), K-major, big then small,
-//   zero past Cin and rows past Cout: a 3-D TMA box {32, BN, 2} a chunk
-//   into a 4-stage ring.
+// * B, the weight, reordered and split once per pass (feat_prop), refine
+//   (RAFT) or call (the encoder) to (2, Cout_pad, kh * kw * Cin_pad),
+//   K-major, big then small, zero past Cin and rows past Cout: a 3-D TMA
+//   box {32, BN, 2} a chunk into a 4-stage ring.
 // * A producer warpgroup (setmaxnreg 24) whose thread 0 issues the halo and
 //   weight copies, and two consumer warpgroups (setmaxnreg 240) of 64 rows:
 //   each holds the chunk's accumulator and the running sum (2 x BN / 2
@@ -168,6 +176,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
                                          int accumulate) {
   if constexpr (BN == 8)
     hopper::wgmma_tf32_rs_n8(d, a, db, accumulate);
+  else if constexpr (BN == 32)
+    hopper::wgmma_tf32_rs_n32(d, a, db, accumulate);
   else if constexpr (BN == 64)
     hopper::wgmma_tf32_rs_n64(d, a, db, accumulate);
   else if constexpr (BN == 96)
@@ -510,6 +520,7 @@ extern "C" int e2fgvi_conv(const LaunchArgs* a, float slope, int device,
   E2FGVI_CONV(1, 1, 128)
   E2FGVI_CONV(1, 1, 144)
   E2FGVI_CONV(3, 3, 8)
+  E2FGVI_CONV(3, 3, 32)
   E2FGVI_CONV(3, 3, 64)
   E2FGVI_CONV(3, 3, 96)
   E2FGVI_CONV(3, 3, 128)

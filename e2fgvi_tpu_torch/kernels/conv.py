@@ -9,8 +9,8 @@ z * tanh(q)); after the first three, an optional residual add. Inputs and
 outputs may be channel ranges of a wider buffer (any pixel pitch). It has
 no TPU counterpart: the JAX package left these convolutions to XLA.
 
-Two entry points share one launch path and one plain form; they differ in
-autograd and in the count of `LAUNCHES` they add to:
+Three entry points share one launch path and one plain form; they differ
+in autograd and in the count of `LAUNCHES` they add to:
 
 * `conv3x3` (feat_prop's 3x3 convolutions, with LeakyReLU and the
   residual): CPU tensors take the plain form, CUDA tensors the kernel,
@@ -19,10 +19,14 @@ autograd and in the count of `LAUNCHES` they add to:
   as K1's and K3's are (kernels/deform.py plain_vjp).
 * `raft_conv` (RAFT's update block): forward only (RAFT runs frozen),
   writing into `out` where given.
+* `encoder_conv` (the E2FGVI encoder's stride-1 3x3 convolutions, with
+  LeakyReLU): forward only; a grouped convolution is one launch a group,
+  on channel ranges of one input and one output.
 
 The weight reordered and split for the kernel (conv_operands) is made once
 by a caller that runs one weight many times (models/feat_prop.py, once a
-propagation; models/raft.py, once a refine) and passed in.
+propagation; models/raft.py, once a refine; models/e2fgvi.py, once an
+encoder call) and passed in.
 """
 
 import array
@@ -36,12 +40,12 @@ from e2fgvi_tpu_torch.kernels.deform import (_aligned, differentiable,
                                              plain_vjp, split_tf32)
 from e2fgvi_tpu_torch.ops.convs import conv2d, leaky_relu
 
-LAUNCHES = {"conv3x3": 0, "raft_conv": 0}
+LAUNCHES = {"conv3x3": 0, "raft_conv": 0, "encoder": 0}
 
 CHUNK = 32                  # K chunk: 32 channels of one tap
 # the N-tiles the kernel is built with for each tap geometry (kh, kw)
-BUILT = {(1, 1): (128, 144), (3, 3): (8, 64, 96, 128, 144), (1, 5): (128,),
-         (5, 1): (128,)}
+BUILT = {(1, 1): (128, 144), (3, 3): (8, 32, 64, 96, 128, 144),
+         (1, 5): (128,), (5, 1): (128,)}
 ACTS = {"none": 0, "relu": 1, "zr": 2, "gru": 3, "leaky": 4}
 # the epilogues a residual may follow
 RESIDUAL_ACTS = ("none", "relu", "leaky")
@@ -147,6 +151,17 @@ def conv_operands(weight, bias) -> Operands:
     wk = torch.stack(split_tf32(conv_weight(
         F.pad(weight, (0, 0, 0, 0, 0, 0, 0, pad))))).contiguous()
     return Operands(weight, b32, wk, F.pad(b32, (0, pad)), bn)
+
+
+def group_operands(weight, bias, groups):
+    """C's operands of each group of a convolution in `groups` groups
+    (weight (Cout, Cin / groups, kh, kw), bias (Cout,)): group g's are
+    conv_operands of weight rows and bias entries g Cout_g .. (g + 1)
+    Cout_g, Cout_g = Cout / groups. Raises ValueError where check_weight
+    does for a group's weight."""
+    cg = weight.shape[0] // groups
+    return [conv_operands(weight[g * cg:(g + 1) * cg],
+                          bias[g * cg:(g + 1) * cg]) for g in range(groups)]
 
 
 def pitch(t, name, multiple):
@@ -345,14 +360,47 @@ def raft_conv(x, ops, act="none", out=None, net=None, z=None):
     return plain_call(x, ops, act, out, net, z)
 
 
-def plain_call(x, ops, act="none", out=None, net=None, z=None):
-    """raft_conv's call on the plain form, on any device: the CPU's path.
-    x goes in as a contiguous NCHW copy: the CPU's channels-last
-    convolution lands 3-6x farther from float64 than the NCHW one at
-    RAFT's widths, and the iterations carry the error; and a channel range
-    of the state buffer gives the bits of the same channels concatenated."""
+def encoder_conv(x, ops, negative_slope):
+    """A float32 3x3 convolution of the E2FGVI encoder (stride 1, padding
+    1) with its bias, then LeakyReLU(negative_slope): the encoder's entry
+    point to C. ops: group_operands(weight, bias, groups), one Operands a
+    group (one for a dense convolution). Group g is one launch that reads
+    channels g Cin_g .. (g + 1) Cin_g of x and writes channels g Cout_g ..
+    (g + 1) Cout_g of one output, both as views at their buffer's pixel
+    pitch: nothing is split, copied or concatenated.
+
+    x (N, H, W, groups Cin_g), channel-last with evenly spaced pixels
+    (cuDNN's stride-2 layers hand over contiguous maps). Returns (N, H, W,
+    groups Cout_g), contiguous. Inputs outside check_inputs' contract
+    raise on every device. CUDA tensors launch the kernel, forward only
+    (counts LAUNCHES["encoder"]); CPU tensors take plain_call, group by
+    group."""
+    cin, cout = ops[0].weight.shape[1], ops[0].weight.shape[0]
+    out = x.new_empty((*x.shape[:3], cout * len(ops)))
+    for g, o in enumerate(ops):
+        xg = x[..., g * cin:(g + 1) * cin]
+        og = out[..., g * cout:(g + 1) * cout]
+        if x.is_cuda:
+            launch(xg, o, "leaky", out=og, negative_slope=negative_slope,
+                   counter="encoder")
+        else:
+            check_inputs(xg, o.weight, "leaky", og,
+                         negative_slope=negative_slope)
+            plain_call(xg, o, "leaky", og, negative_slope=negative_slope)
+    return out
+
+
+def plain_call(x, ops, act="none", out=None, net=None, z=None,
+               negative_slope=None):
+    """raft_conv's and encoder_conv's call on the plain form, on any
+    device: the CPU's path. x goes in as a contiguous NCHW copy: the CPU's
+    channels-last convolution lands 3-6x farther from float64 than the
+    NCHW one at RAFT's widths, and the iterations carry the error; and a
+    channel range of a wider buffer gives the bits of the same channels
+    copied out."""
     xc = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    y = conv_plain(xc, ops.weight, ops.bias, act=act, net=net, z=z)
+    y = conv_plain(xc, ops.weight, ops.bias, act=act,
+                   negative_slope=negative_slope, net=net, z=z)
     if act == "zr":
         zt, y = y
         z.copy_(zt)

@@ -23,6 +23,8 @@ load_state_dict(strict=True) once their recomputed buffers are dropped
 import torch
 import torch.nn as nn
 
+from e2fgvi_tpu_torch.kernels import conv as kconv
+from e2fgvi_tpu_torch.kernels.deform import differentiable
 from e2fgvi_tpu_torch.models import feat_prop, spynet, tfocal
 from e2fgvi_tpu_torch.ops.convs import conv2d, leaky_relu
 from e2fgvi_tpu_torch.ops.resize import (resize_scale2_aligned,
@@ -76,7 +78,12 @@ class Encoder(nn.Module):
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):
-        """(B*T, H, W, in_channels) -> (B*T, H/4, W/4, 128)."""
+        """(B*T, H, W, in_channels) -> (B*T, H/4, W/4, 128). A float32 CUDA
+        input outside autograd runs the stride-1 layers on C
+        (kernels.conv.encoder_conv: bias and LeakyReLU in its epilogue, a
+        grouped layer one launch a group); the stride-2 layers, bfloat16,
+        the CPU and training run on ops.convs.conv2d."""
+        ops = self.kernel_operands(x)
         out, x0 = x, None
         for i, (_, _, stride, groups) in enumerate(_ENC_PLAN):
             if i == 4:
@@ -88,10 +95,26 @@ class Encoder(nn.Module):
                 o = out.reshape(bt, h, w, g, -1)
                 out = torch.cat([a, o], -1).reshape(bt, h, w, -1)
             conv = self.layers[2 * i]
-            out = leaky_relu(conv2d(out, conv.weight, conv.bias,
-                                    stride=stride, padding=1, groups=groups),
-                             0.2)
+            if i in ops:
+                out = kconv.encoder_conv(out, ops[i], 0.2)
+            else:
+                out = leaky_relu(conv2d(out, conv.weight, conv.bias,
+                                        stride=stride, padding=1,
+                                        groups=groups), 0.2)
         return out
+
+    def kernel_operands(self, x):
+        """C's operands (kernels.conv.group_operands) of each stride-1
+        layer, by its index in _ENC_PLAN, for a float32 CUDA input outside
+        autograd, made once a call; {} elsewhere (C's backward would
+        recompute on cuDNN and cost more than cuDNN's own)."""
+        if not (x.is_cuda and x.dtype == torch.float32) or differentiable(
+                x, *self.parameters()):
+            return {}
+        return {i: kconv.group_operands(self.layers[2 * i].weight,
+                                        self.layers[2 * i].bias, groups)
+                for i, (_, _, stride, groups) in enumerate(_ENC_PLAN)
+                if stride == 1}
 
 
 class Deconv(nn.Module):

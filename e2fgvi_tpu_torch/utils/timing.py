@@ -14,12 +14,12 @@ Inside a call the timer also counts, where the build has CUDA:
 sync debug mode set to "warn" for the call, its warnings counted),
 `device_alloc_calls`, the caching allocator's calls to the driver
 (`num_device_alloc + num_device_free` of its statistics),
-`conv_launches` and `raft_conv_launches`, the launches of C, the float32
-convolution kernel, by feat_prop's and by RAFT's entry point
-(kernels/conv.py `LAUNCHES["conv3x3"]` and `["raft_conv"]`). Each is read
-at every span boundary and
-charged to the innermost open span. The program adds counts of its own
-with `count` (ProPainter's `raft_iterations`, `attn_rows_flagged` and
+`conv_launches`, `raft_conv_launches` and `encoder_conv_launches`, the
+launches of C, the float32 convolution kernel, by feat_prop's, RAFT's and
+the encoder's entry point (kernels/conv.py `LAUNCHES["conv3x3"]`,
+`["raft_conv"]` and `["encoder"]`). Each is read at every span boundary
+and charged to the innermost open span. The program adds counts of its
+own with `count` (ProPainter's `raft_iterations`, `attn_rows_flagged` and
 `attn_rows_frame`), charged likewise. Spans and counts stay in memory
 until `totals()` reads them.
 """
@@ -175,7 +175,8 @@ class StageTimer:
         from e2fgvi_tpu_torch.kernels import conv
         readers = {"host_syncs": lambda: self._syncs,
                    "conv_launches": lambda: conv.LAUNCHES["conv3x3"],
-                   "raft_conv_launches": lambda: conv.LAUNCHES["raft_conv"]}
+                   "raft_conv_launches": lambda: conv.LAUNCHES["raft_conv"],
+                   "encoder_conv_launches": lambda: conv.LAUNCHES["encoder"]}
         if "num_device_alloc" in torch.cuda.memory_stats_as_nested_dict():
             readers["device_alloc_calls"] = _alloc_calls
         return readers

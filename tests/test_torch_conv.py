@@ -3,13 +3,15 @@ reordered, permuted, padded to the N-tile and split into tf32 parts) for
 every tap geometry against a numpy im2col in float64, the kernel's schedule
 emulated in numpy for every tap geometry and epilogue (TMA's halo box with
 its zero fill and 128-byte swizzle, each thread's loads and A fragments,
-the wgmma's k-columns, the epilogue), its 3xTF32 precision, both entry
+the wgmma's k-columns, the epilogue), its 3xTF32 precision, the entry
 points' CPU path against ops.convs.conv2d, channel ranges against
-concatenation, what the entry points refuse, and feat_prop's dispatch. The
-kernel itself runs in tests/test_torch_cuda.py (conv3x3) and
-tests/test_torch_propainter_cuda.py (raft_conv)."""
+concatenation, the encoder's grouped layers as one call a group on channel
+ranges, what the entry points refuse, and feat_prop's and the encoder's
+dispatch. The kernel itself runs in tests/test_torch_cuda.py (conv3x3,
+encoder_conv) and tests/test_torch_propainter_cuda.py (raft_conv)."""
 
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -17,9 +19,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from e2fgvi_tpu_torch.data import pipeline
 from e2fgvi_tpu_torch.kernels import conv
 from e2fgvi_tpu_torch.kernels.deform import split_tf32
-from e2fgvi_tpu_torch.models import feat_prop, raft
+from e2fgvi_tpu_torch.models import e2fgvi, feat_prop, raft
 from e2fgvi_tpu_torch.ops.convs import conv2d, leaky_relu
 
 SRC = (Path(conv.__file__).resolve().parents[1] / "csrc" / "conv.cu"
@@ -49,7 +52,15 @@ CONVS = {"convc1": (324, 256, 1, 1, "relu"),
          "offset3": (128, 432, 3, 3, "none"),
          "backbone0": (256, 128, 3, 3, "leaky"),
          "backbone0_fwd": (384, 128, 3, 3, "leaky"),
-         "backbone1": (128, 128, 3, 3, "residual")}
+         "backbone1": (128, 128, 3, 3, "residual"),
+         # the E2FGVI encoder's seven stride-1 layers (models/e2fgvi.py
+         # _ENC_PLAN's index), a grouped one by its groups' shape
+         "enc1": (64, 64, 3, 3, "leaky"), "enc3": (128, 256, 3, 3, "leaky"),
+         "enc4": (256, 384, 3, 3, "leaky"),
+         "enc5_g2": (320, 256, 3, 3, "leaky"),
+         "enc6_g4": (192, 96, 3, 3, "leaky"),
+         "enc7_g8": (80, 32, 3, 3, "leaky"),
+         "enc8": (512, 128, 3, 3, "leaky")}
 SLOPE = 0.1
 
 
@@ -77,11 +88,12 @@ def _conv64(x, wt, b):
 def test_n_tiles_of_the_ports_convolutions(name):
     """Each convolution's N-tile: the built width that pads Cout least, the
     widest among equals (126 on one 128-wide tile, 2 on 8, 192 on two 96s,
-    432 on three 144s and 576 on four), so conv_operands pads Cout to
+    432 on three 144s and 576 on four; the encoder's groups of 32 on 32,
+    of 96 on 96, its 384 on three 128s), so conv_operands pads Cout to
     it."""
     cin, cout, kh, kw, _ = CONVS[name]
-    want = {2: 8, 64: 64, 126: 128, 192: 96, 128: 128, 256: 128, 432: 144,
-            576: 144}
+    want = {2: 8, 32: 32, 64: 64, 96: 96, 126: 128, 192: 96, 128: 128,
+            256: 128, 384: 128, 432: 144, 576: 144}
     assert conv.n_tile(kh, kw, cout) == want[cout]
     assert want[cout] in conv.BUILT[(kh, kw)]
 
@@ -285,7 +297,11 @@ def _epilogue_inputs(seed, n, h, w, width, epilogue):
         (2, 10, 20, 36, 128),    # ragged tiles both ways, a 4-channel chunk
         (1, 8, 16, 64, 432),     # whole tiles; three 144-wide N-tiles
         (1, 9, 17, 388, 128)]    # the offset head's first layer
-    for epilogue in ("none", "leaky", "residual")])
+    for epilogue in ("none", "leaky", "residual")] + [
+    # the encoder's groups: Cin_g 80 (a 16-channel last chunk) on BN 32,
+    # 192 on BN 96, 320 on two 128-wide N-tiles
+    (1, 9, 17, 3, 3, cin, cout, "leaky")
+    for cin, cout in [(80, 32), (192, 96), (320, 256)]])
 def test_kernel_schedule_matches_conv(n, h, w, kh, kw, cin, cout, epilogue):
     """The emulated schedule against the float64 convolution and epilogue
     (conv_plain in float64) on maps with ragged tiles: every output
@@ -418,6 +434,64 @@ def test_channel_ranges_match_concatenation():
     assert (got - want).abs().max() <= 1e-5
 
 
+# the encoder's grouped layers: (Cin, Cout, groups)
+ENC_GROUPED = [(640, 512, 2), (768, 384, 4), (640, 256, 8)]
+
+
+@pytest.mark.parametrize("cin,cout,groups", ENC_GROUPED)
+def test_grouped_channel_ranges_match_per_group_copies(monkeypatch, cin,
+                                                       cout, groups):
+    """encoder_conv runs a grouped layer as one call a group on a channel
+    range of one input and of one output buffer (views at their buffers'
+    pixel pitch, nothing copied): bit for bit what each group's contiguous
+    copy gives, concatenated."""
+    n, h, w = 2, 7, 9
+    x = _map(23, n, h, w, cin)
+    wt, b = _weights(24, cin // groups, cout, 3, 3)
+    ops = conv.group_operands(wt, b, groups)
+    seen = []
+    plain = conv.plain_call
+
+    def record(xg, o, act, out, **k):
+        seen.append((xg.stride(2), out.stride(2), xg.is_contiguous()))
+        return plain(xg, o, act, out, **k)
+    monkeypatch.setattr(conv, "plain_call", record)
+    got = conv.encoder_conv(x, ops, 0.2)
+    cg = cin // groups
+    want = torch.cat([plain(x[..., g * cg:(g + 1) * cg].contiguous(),
+                            ops[g], "leaky", negative_slope=0.2)
+                      for g in range(groups)], -1)
+    assert seen == [(cin, cout, False)] * groups
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cin,cout,groups", ENC_GROUPED + [(128, 256, 1)])
+def test_group_decomposition_is_grouped_conv2d(cin, cout, groups):
+    """The group-by-views decomposition on the plain form is
+    F.conv2d(groups=groups) with LeakyReLU(0.2): in float32 within
+    float32 rounding, and within it of float64; group_operands holds
+    each group's rows of the weight and the bias."""
+    x = _map(25, 2, 8, 11, cin)
+    wt, b = _weights(26, cin // groups, cout, 3, 3)
+    ops = conv.group_operands(wt, b, groups)
+    cg = cout // groups
+    assert [o.bn for o in ops] == [conv.n_tile(3, 3, cg)] * groups
+    for g, o in enumerate(ops):
+        assert torch.equal(o.weight, wt[g * cg:(g + 1) * cg])
+        assert torch.equal(o.bias, b[g * cg:(g + 1) * cg])
+    before = dict(conv.LAUNCHES)
+    got = conv.encoder_conv(x, ops, 0.2)
+    assert conv.LAUNCHES == before
+
+    def grouped(dtype):
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), wt.to(dtype),
+                     b.to(dtype), padding=1, groups=groups)
+        return F.leaky_relu(y, 0.2).permute(0, 2, 3, 1)
+    assert got.shape == (2, 8, 11, cout)
+    assert (got - grouped(torch.float32)).abs().max() <= 1e-5
+    assert (got.double() - grouped(torch.float64)).abs().max() <= 1e-5
+
+
 def _refused(entry, case):
     """(call(x, tensor map), the launcher's call, x) of a case the entry
     point refuses."""
@@ -538,6 +612,84 @@ def test_feat_prop_routes_float32_cuda_convolutions_to_c1(monkeypatch):
     feat_prop.conv3x3(x.as_subclass(_Cuda), layer.float())
     assert calls[0] == ("c", torch.float32)
     assert feat_prop.conv3x3_operands([layer], x) == [None]
+
+
+def test_encoder_routes_float32_cuda_stride1_layers_to_c(monkeypatch):
+    """The encoder's dispatch by what it sees: a float32 CUDA input outside
+    autograd sends layers 1 and 3-8 to C, 18 launches (one a group: 1 + 1
+    + 1 + 2 + 4 + 8 + 1), each with the bias and LeakyReLU(0.2), and the
+    two stride-2 layers to conv2d, the result the plain chain's within
+    float32 rounding; bfloat16, the CPU and grad mode run every layer on
+    conv2d. CUDA is stood in by a flag on the tensor."""
+    launches, convs = [], []
+
+    def fake_launch(x, ops, act, out, negative_slope, counter):
+        launches.append((x.shape[3], x.stride(2), tuple(ops.weight.shape),
+                         act, negative_slope, counter))
+        return out.copy_(conv.conv_plain(x, ops.weight, ops.bias, act=act,
+                                         negative_slope=negative_slope))
+
+    def record(x, w, b=None, stride=1, padding=0, groups=1):
+        convs.append((x.shape[3], stride, groups))
+        return conv2d(x, w, b, stride, padding, groups)
+    monkeypatch.setattr(conv, "launch", fake_launch)
+    monkeypatch.setattr(e2fgvi, "conv2d", record)
+    torch.manual_seed(0)
+    enc = e2fgvi.Encoder()
+    for m in enc.layers[::2]:
+        torch.nn.init.normal_(m.bias, std=0.1)
+    x = _map(27, 2, 16, 24, 3)
+    every = [(cin, stride, groups)
+             for cin, _, stride, groups in e2fgvi._ENC_PLAN]
+    with torch.no_grad():
+        want = enc(x)
+        assert convs == every and not launches
+        convs.clear()
+        got = enc(x.as_subclass(_Cuda))
+        assert convs == [(3, 2, 1), (64, 2, 1)]
+        assert [(c, w[0], g) for c, _, w, *_, g in launches] == [
+            (64, 64, "encoder"), (128, 256, "encoder"),
+            (256, 384, "encoder")] + [(320, 256, "encoder")] * 2 + [
+            (192, 96, "encoder")] * 4 + [(80, 32, "encoder")] * 8 + [
+            (512, 128, "encoder")]
+        assert {(a, s) for *_, a, s, _ in launches} == {("leaky", 0.2)}
+        assert [p for _, p, *_ in launches[3:]] == [640] * 2 + [768] * 4 + \
+            [640] * 8 + [512]
+        assert got.shape == want.shape == (2, 4, 6, 128)
+        assert (got - want).abs().max() <= 1e-5
+        convs.clear()
+        launches.clear()
+        enc(x.bfloat16().as_subclass(_Cuda))
+    assert convs == every and not launches
+    convs.clear()
+    out = enc(x.as_subclass(_Cuda))
+    assert convs == every and not launches and out.requires_grad
+    assert enc.kernel_operands(x) == {}
+
+
+def test_encoder_launch_reader():
+    """perfbench/metrics/encoder_conv_launches_per_video.py: the program's
+    encoder_conv_launches per traced video, 40.5 on the f32 cell's pool
+    (lengths 25, 60, 80, 104: 9 encoder calls of up to ENC_CHUNK frames,
+    18 launches each); None where the program has no such counter (a
+    parent without it) or no video completed; 0 (bfloat16) read as 0."""
+    bench = str(Path(__file__).resolve().parents[1] / "perfbench")
+    if bench not in sys.path:
+        sys.path.append(bench)
+    from harness import common
+    module = common.reader("encoder_conv_launches_per_video.f32")
+    assert Path(module.__file__).name == "encoder_conv_launches_per_video.py"
+    pool = [25, 60, 80, 104]
+    n = sum(18 * -(-t // pipeline.ENC_CHUNK) for t in pool)
+    run = {"kind": "serve", "frames": sum(pool), "latencies": [1.0] * 4,
+           "stages_ms": {"encode": 100.0, "encoder_conv_launches": n,
+                         "encoder_conv_launches.encode": n}}
+    assert module.read(run) == 40.5
+    assert module.read(dict(run, stages_ms={
+        "encode": 100.0, "encoder_conv_launches": 0})) == 0
+    assert module.read(dict(run, stages_ms={"encode": 100.0})) is None
+    assert module.read(dict(run, stages_ms=None)) is None
+    assert module.read(dict(run, latencies=[])) is None
 
 
 @pytest.mark.parametrize("cin", [261, 258])

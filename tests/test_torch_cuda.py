@@ -550,6 +550,95 @@ def test_conv3x3_refuses_grad(gen):
 
 
 # ---------------------------------------------------------------------------
+# C through encoder_conv: the E2FGVI encoder's stride-1 convolutions
+
+# the grouped layers (Cin, Cout, groups), at 1/4 of 432x240
+_ENC_GROUPED = [(640, 512, 2), (768, 384, 4), (640, 256, 8)]
+
+
+def _encoder(gen, dtype=torch.float32):
+    """An Encoder on the card with weights that keep its activations near
+    unit scale (chip_smoke.encoder_weights)."""
+    from chip_smoke import encoder_weights
+    from e2fgvi_tpu_torch.models import e2fgvi
+    return encoder_weights(e2fgvi.Encoder().cuda(), lambda *shape, std=1.0:
+                           _randn(gen, *shape, std=std)).to(dtype)
+
+
+def test_encoder_on_c_matches_cudnn_and_float64(gen):
+    """The encoder on a float32 input under inference mode, at the serving
+    pipeline's ENC_CHUNK frames of 432x240: the stride-1 layers on C (18
+    launches), within C's bars of the cuDNN float32 path (TF32 off) and of
+    float64. The stride-2 layers' cuDNN output reaches C contiguous."""
+    from e2fgvi_tpu_torch.data.pipeline import ENC_CHUNK
+    from e2fgvi_tpu_torch.ops.convs import conv2d
+    enc = _encoder(gen)
+    x = _randn(gen, ENC_CHUNK, 240, 432, 3)
+    assert not torch.backends.cudnn.allow_tf32
+    with torch.inference_mode():
+        for i in (0, 2):
+            m = enc.layers[2 * i]
+            xi = _randn(gen, 2, 24, 40, m.weight.shape[1])
+            assert conv2d(xi, m.weight, m.bias, stride=2,
+                          padding=1).is_contiguous()
+        before = conv.LAUNCHES["encoder"]
+        got = enc(x)
+        assert conv.LAUNCHES["encoder"] == before + 18
+        assert got.shape == (ENC_CHUNK, 60, 108, 128) and got.is_contiguous()
+        enc.kernel_operands = lambda x: {}          # every layer on cuDNN
+        want = enc(x)
+    enc.double()
+    with torch.inference_mode():
+        want64 = enc(x.double())
+    assert conv.LAUNCHES["encoder"] == before + 18
+    assert (got - want).abs().max() <= _C1_MAX_ABS
+    assert (got.double() - want64).abs().max() <= _C1_MAX_ABS_F64
+
+
+@pytest.mark.parametrize("cin,cout,groups", _ENC_GROUPED)
+def test_encoder_grouped_layer_matches_grouped_conv2d(gen, cin, cout,
+                                                      groups):
+    """A grouped layer alone through encoder_conv, one launch a group on
+    channel ranges of one input and one output, against
+    F.conv2d(groups=groups) and LeakyReLU(0.2) with TF32 off and in
+    float64, at ENC_CHUNK maps of 60x108."""
+    import torch.nn.functional as F
+    from e2fgvi_tpu_torch.data.pipeline import ENC_CHUNK
+    x = _randn(gen, ENC_CHUNK, 60, 108, cin)
+    wt = _randn(gen, cout, cin // groups, 3, 3,
+                std=(9 * cin / groups) ** -0.5)
+    b = _randn(gen, cout, std=0.1)
+    before = conv.LAUNCHES["encoder"]
+    got = conv.encoder_conv(x, conv.group_operands(wt, b, groups), 0.2)
+    assert conv.LAUNCHES["encoder"] == before + groups
+
+    def grouped(dtype):
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), wt.to(dtype),
+                     b.to(dtype), padding=1, groups=groups)
+        return F.leaky_relu(y, 0.2).permute(0, 2, 3, 1)
+    assert (got - grouped(torch.float32)).abs().max() <= _C1_MAX_ABS
+    assert (got.double() - grouped(torch.float64)).abs().max() <= \
+        _C1_MAX_ABS_F64
+
+
+def test_encoder_launches_c_in_float32_only(gen):
+    """LAUNCHES["encoder"] takes 18 an encoder call in float32 outside
+    autograd, none in bfloat16 and none under grad (training)."""
+    enc, enc16 = _encoder(gen), _encoder(gen, torch.bfloat16)
+    x = _randn(gen, 3, 24, 40, 3)
+    before = conv.LAUNCHES["encoder"]
+    with torch.inference_mode():
+        enc(x)
+        assert conv.LAUNCHES["encoder"] == before + 18
+        enc16(x.bfloat16())
+    with torch.no_grad():
+        enc(x)
+    assert conv.LAUNCHES["encoder"] == before + 36
+    assert enc(x).requires_grad
+    assert conv.LAUNCHES["encoder"] == before + 36
+
+
+# ---------------------------------------------------------------------------
 # E1-E6: the experiments' kernels at small ragged shapes
 # ---------------------------------------------------------------------------
 

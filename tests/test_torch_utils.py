@@ -153,11 +153,13 @@ def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
     cuda = FakeCuda(monkeypatch, mode=1)
     monkeypatch.setitem(conv.LAUNCHES, "conv3x3", 0)
     monkeypatch.setitem(conv.LAUNCHES, "raft_conv", 0)
+    monkeypatch.setitem(conv.LAUNCHES, "encoder", 0)
     t = timing.StageTimer()
     with t.video(torch.device("cpu")):
         assert cuda.set_calls == ["warn"]
         t.begin("encode")
         cuda.sync()
+        conv.LAUNCHES["encoder"] += 18
         t.begin("prep")
         cuda.sync()
         cuda.sync()
@@ -183,4 +185,6 @@ def test_stage_timer_charges_counts_to_the_innermost_span(monkeypatch):
         "conv_launches.encode": 0, "conv_launches.prep": 2,
         "conv_launches.flows": 0, "raft_conv_launches": 5,
         "raft_conv_launches.encode": 0, "raft_conv_launches.prep": 0,
-        "raft_conv_launches.flows": 5}
+        "raft_conv_launches.flows": 5, "encoder_conv_launches": 18,
+        "encoder_conv_launches.encode": 18,
+        "encoder_conv_launches.prep": 0, "encoder_conv_launches.flows": 0}
