@@ -8,6 +8,16 @@ model (--model e2fgvi_hq) and ProPainter (--model propainter, with its
 RAFT from --raft_ckpt) at --width x --height with --set_size, else at the
 video's own size (ProPainter mirror-pads it to multiples of 8).
 
+--model wan_vace runs Wan2.1-VACE-1.3B's masked video-to-video inpainting
+(models/wan_vace.py): the whole video as one clip (mirror-padded to
+multiples of 16 and to 1 + 4n frames), VACE's context from its VAE,
+Wan's 50 Euler steps of two DiT forwards each, the VAE decode, the
+composite. -c is the DiT's state dict and --vae_ckpt the VAE's, as .pth
+files of the released checkpoints' names; --text_context a .pt file with
+umT5's outputs for the prompt and the negative prompt ({'context',
+'context_null'}, each (L, 4096)), which this repository does not compute:
+without it both are seeded random tensors, as in the benchmark.
+
     python -m e2fgvi_tpu_torch.cli.inpaint -v examples/tennis \
         -m examples/tennis_mask -c E2FGVI-CVPR22.pth --dtype bfloat16
     python -m e2fgvi_tpu_torch.cli.inpaint -v examples/hqtest \
@@ -15,6 +25,10 @@ video's own size (ProPainter mirror-pads it to multiples of 8).
     python -m e2fgvi_tpu_torch.cli.inpaint -v examples/hqtest \
         -m examples/hqtest_mask -c ProPainter.pth --raft_ckpt \
         raft-things.pth --model propainter --dtype bfloat16
+    python -m e2fgvi_tpu_torch.cli.inpaint -v examples/hqtest \
+        -m examples/hqtest_mask -c vace_1.3b.pth --vae_ckpt \
+        Wan2.1_VAE.pth --text_context prompt.pt --model wan_vace \
+        --dtype bfloat16
 """
 
 import argparse
@@ -37,9 +51,14 @@ def build_parser():
     p.add_argument("-m", "--mask", type=str, required=True,
                    help="directory of per-frame masks")
     p.add_argument("--model", type=str, default="e2fgvi",
-                   choices=["e2fgvi", "e2fgvi_hq", "propainter"])
+                   choices=["e2fgvi", "e2fgvi_hq", "propainter", "wan_vace"])
     p.add_argument("--raft_ckpt", type=str, default=None,
                    help="raft-things .pth (ProPainter's flows)")
+    p.add_argument("--vae_ckpt", type=str, default=None,
+                   help="Wan2.1 VAE .pth (--model wan_vace)")
+    p.add_argument("--text_context", type=str, default=None,
+                   help="umT5 outputs of the prompt and negative prompt, "
+                   ".pt (--model wan_vace; default seeded)")
     p.add_argument("--step", type=int, default=10, help="ref-frame stride")
     p.add_argument("--num_ref", type=int, default=-1)
     p.add_argument("--neighbor_stride", type=int, default=5)
@@ -134,6 +153,41 @@ def load_propainter(args, device):
             r.to(device=device).eval(), dtype)
 
 
+def load_wan_vace(args, device):
+    """Wan2.1-VACE at the published widths and sampler settings
+    (wan_vace.PUBLISHED) on `device`, the DiT in
+    args.dtype but for its float32 parts, the VAE in args.dtype: seeded
+    random weights with args.random_weights, else args.ckpt (the DiT) and
+    args.vae_ckpt; the prompts from args.text_context, else seeded.
+    Returns (model, dtype)."""
+    from e2fgvi_tpu_torch.models import wan_vace
+    with torch.device(device):
+        model = wan_vace.build()
+    if args.random_weights:
+        wan_vace.init_weights(model, torch.Generator(device).manual_seed(0))
+    else:
+        if args.vae_ckpt is None:
+            raise SystemExit("--model wan_vace needs --vae_ckpt")
+        model.dit.load_state_dict(_state_dict(args.ckpt), strict=True)
+        model.vae.load_state_dict(_state_dict(args.vae_ckpt), strict=True)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model.cast(dtype).eval()
+    d = model.dit
+    if args.text_context is not None:
+        ctx = torch.load(args.text_context, map_location="cpu",
+                         weights_only=True)
+        pad = [torch.nn.functional.pad(c, (0, 0, 0, d.text_len - len(c)))
+               for c in (ctx["context"], ctx["context_null"])]
+    else:
+        gen = torch.Generator(device).manual_seed(1)
+        dim = d.text_embedding[0].in_features
+        pad = [wan_vace.seeded_context(gen, min(32, d.text_len), d.text_len,
+                                       dim, device)
+               for _ in range(2)]
+    model.set_prompts(*pad)
+    return model, dtype
+
+
 def load_model(args, device):
     """The generator of args.model on `device` in args.dtype: seeded random
     weights with args.random_weights, else the reference .pth at
@@ -172,6 +226,8 @@ def main(argv=None):
     flow_model = None
     if args.model == "propainter":
         model, flow_model, dtype = load_propainter(args, device)
+    elif args.model == "wan_vace":
+        model, dtype = load_wan_vace(args, device)
     else:
         model, dtype = load_model(args, device)
     runner = SlidingWindowInpainter(

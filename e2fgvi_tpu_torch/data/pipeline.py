@@ -23,6 +23,12 @@ frames, image propagation per sub-video of 80 frames, the encoder once per
 frame on (updated frame, mask, updated mask), then the windows as above,
 each batch's sparse-attention rows made on the host from the masks and
 uploaded with the video's other index tables, once a video.
+
+A Wan2.1-VACE model (models/wan_vace.py) takes the whole video as one
+clip, not sliding windows: frames mirror-padded to multiples of 16 and
+the clip to 1 + 4n frames (the last frame repeated), VACE's context
+encoded by the VAE, the denoising loop, the VAE decode, then the same
+composite and one copy back.
 """
 
 import dataclasses
@@ -31,7 +37,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from e2fgvi_tpu_torch.models import e2fgvi, propainter, raft, tfocal
+from e2fgvi_tpu_torch.models import e2fgvi, propainter, raft, tfocal, wan_vace
 from e2fgvi_tpu_torch.ops.resize import resize_scale_quarter
 from e2fgvi_tpu_torch.utils import env, timing
 
@@ -39,8 +45,10 @@ from e2fgvi_tpu_torch.utils import env, timing
 # feature grid (reference test.py:156-165); any padded size then tiles into
 # whole (5, 9) attention windows, which the HQ model needs at other sizes
 PAD_MOD = (60, 108)
-# ProPainter's frames are multiples of 8 (RAFT's 1/8 grid)
+# ProPainter's frames are multiples of 8 (RAFT's 1/8 grid); Wan's of 16
+# (the VAE's 8 times the DiT's 2 x 2 patch)
 PAD_MOD_PROPAINTER = (8, 8)
+PAD_MOD_WAN = (16, 16)
 # frames per encode call (and pairs per SPyNet call): bounds how many
 # full-resolution encoder activations are live at once
 ENC_CHUNK = 35
@@ -157,17 +165,22 @@ def blend_tables(plans: list, pred_row: dict, video_length: int):
 class SlidingWindowInpainter:
     """Batched sliding-window video inpainting with cross-window reuse.
 
-    model: an e2fgvi.Generator or a propainter.Generator on `device` (its
-    `family` picks the protocol); flow_model: ProPainter's raft.RAFT, in
+    model: an e2fgvi.Generator, a propainter.Generator or a
+    wan_vace.VaceWan on `device` (its `family` picks the protocol);
+    flow_model: ProPainter's raft.RAFT, in
     float32 (E2FGVI's SPyNet is part of its generator); dtype: the compute
     dtype of the generator (float32 or bfloat16; activations are cast to
     it, weights cast at each op unless the model already holds that
     dtype); out_dtype: np.float32 (composites in [0, 255], the metric path)
     or np.uint8 (the video-writing path); pad_mod: frames are
     mirror-padded to multiples of it and the outputs cropped back (default
-    (60, 108) for E2FGVI, (8, 8) for ProPainter). Where `keep_flows` is
-    set, a ProPainter call leaves its RAFT flows, (forward, backward) on
-    the device cropped to the frames, in `kept_flows`; else None."""
+    (60, 108) for E2FGVI, (8, 8) for ProPainter, (16, 16) for Wan-VACE).
+    Where `keep_flows` is set, a ProPainter call leaves its RAFT flows,
+    (forward, backward) on the device cropped to the frames, in
+    `kept_flows`; else None. Where `keep_step` is a step's index, a
+    Wan-VACE call leaves in `kept_step` that step's latent, timestep and
+    guided velocity, VACE's context and the final latent (`sample`'s
+    dict, with `context` and `final`), on the device; else None."""
 
     def __init__(self, model, neighbor_stride: int = 5, ref_length: int = 10,
                  num_ref: int = -1, max_batch: int = 8,
@@ -185,8 +198,8 @@ class SlidingWindowInpainter:
                              "(flow_model)")
         self.flow_model = flow_model
         if pad_mod is None:
-            pad_mod = (PAD_MOD_PROPAINTER if self.family == "propainter"
-                       else PAD_MOD)
+            pad_mod = {"propainter": PAD_MOD_PROPAINTER,
+                       wan_vace.FAMILY: PAD_MOD_WAN}.get(self.family, PAD_MOD)
         self.neighbor_stride = neighbor_stride
         self.ref_length = ref_length
         self.num_ref = num_ref
@@ -196,6 +209,8 @@ class SlidingWindowInpainter:
         self.pad_mod = tuple(pad_mod)
         self.keep_flows = False
         self.kept_flows = None
+        self.keep_step = None
+        self.kept_step = None
 
     @torch.inference_mode()
     def __call__(self, frames: np.ndarray, masks: np.ndarray,
@@ -217,11 +232,15 @@ class SlidingWindowInpainter:
         records flows first (RAFT, `prep` nested in it, and in it
         raft_corr and raft_update), then img_prop, encode and the rest as
         above, and counts raft_iterations, attn_rows_flagged and
-        attn_rows_frame. Untimed, the call runs the same statements and
-        records nothing. Returns T composited (H, W, 3) frames of
-        out_dtype."""
-        body = (self._inpaint_propainter if self.family == "propainter"
-                else self._inpaint)
+        attn_rows_frame. A Wan-VACE call records prep, vae_encode, dit (the
+        sampling loop; dit_context nested in it around every forward's
+        context blocks), vae_decode, blend and fetch, and counts
+        dit_forwards and dit_tokens. Untimed, the call runs the same
+        statements and records nothing. Returns T composited (H, W, 3)
+        frames of out_dtype."""
+        body = {"propainter": self._inpaint_propainter,
+                wan_vace.FAMILY: self._inpaint_wan_vace}.get(self.family,
+                                                             self._inpaint)
         if timer is None:
             return body(frames, masks, orig_frames, binary_masks, progress,
                         timing.NO_SPANS, None)
@@ -229,6 +248,17 @@ class SlidingWindowInpainter:
             return body(
                 frames, masks, orig_frames, binary_masks, progress, timer,
                 lambda done: timer.mark(done, _WINDOW_NEXT.get(done)))
+
+    def _padded_u8(self, frames, masks):
+        """(frames, masks, (h, w)): uint8 host arrays mirror-padded to
+        multiples of pad_mod, and the size before padding."""
+        if frames.dtype == np.uint8:
+            frames_u8 = frames
+        else:
+            frames_u8 = np.round((frames + 1.0) / 2.0 * 255.0).astype(np.uint8)
+        frames_u8, hw = mirror_pad_hw(frames_u8, *self.pad_mod)
+        masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *self.pad_mod)
+        return frames_u8, masks_u8, hw
 
     def _inpaint(self, frames, masks, orig_frames, binary_masks, progress,
                  spans, window_mark):
@@ -241,12 +271,7 @@ class SlidingWindowInpainter:
         video_length = frames.shape[0]
         plans = plan_windows(video_length, self.neighbor_stride,
                              self.ref_length, self.num_ref)
-        if frames.dtype == np.uint8:
-            frames_u8 = frames
-        else:
-            frames_u8 = np.round((frames + 1.0) / 2.0 * 255.0).astype(np.uint8)
-        frames_u8, (h, w) = mirror_pad_hw(frames_u8, *self.pad_mod)
-        masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *self.pad_mod)
+        frames_u8, masks_u8, (h, w) = self._padded_u8(frames, masks)
         fr = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(dev)
         mk = torch.from_numpy(np.ascontiguousarray(masks_u8)).to(dev)
         spans.end("prep")
@@ -327,6 +352,16 @@ class SlidingWindowInpainter:
         bidx = torch.as_tensor(idx_np, device=dev)
         bwt = torch.as_tensor(wt_np, device=dev)
         blend = (preds[bidx].float() * bwt[:, :, None, None, None]).sum(1)
+        return self._composite_fetch(blend, h, w, orig_frames, binary_masks,
+                                     spans)
+
+    def _composite_fetch(self, blend, h, w, orig_frames, binary_masks,
+                         spans):
+        """The composite of (T, h, w, 3) predictions (float, or uint8 for a
+        uint8 output) with the originals on the device, one copy back
+        (blend span open). Closes blend, records fetch."""
+        dev = self.device
+        video_length = orig_frames.shape[0]
         orig = torch.from_numpy(np.ascontiguousarray(orig_frames)).to(dev)
         bm = torch.from_numpy(
             np.ascontiguousarray(binary_masks[:, :h, :w, :1] != 0)).to(dev)
@@ -350,12 +385,7 @@ class SlidingWindowInpainter:
         video_length = frames.shape[0]
         plans = plan_windows(video_length, self.neighbor_stride,
                              self.ref_length, self.num_ref)
-        if frames.dtype == np.uint8:
-            frames_u8 = frames
-        else:
-            frames_u8 = np.round((frames + 1.0) / 2.0 * 255.0).astype(np.uint8)
-        frames_u8, (h, w) = mirror_pad_hw(frames_u8, *self.pad_mod)
-        masks_u8, _ = mirror_pad_hw(masks.astype(np.uint8), *self.pad_mod)
+        frames_u8, masks_u8, (h, w) = self._padded_u8(frames, masks)
         hp, wp = frames_u8.shape[1:3]
         lh, lw = tfocal.token_grid((hp // 4, wp // 4))
         n_local, tables = _propainter_tables(
@@ -448,6 +478,46 @@ class SlidingWindowInpainter:
                 progress(sl.stop, len(plans))
         return self._blend_fetch(plans, n_local, outs, h, w, orig_frames,
                                  binary_masks, spans)
+
+    def _inpaint_wan_vace(self, frames, masks, orig_frames, binary_masks,
+                          progress, spans, window_mark):
+        """__call__'s body for a Wan-VACE model: the whole video, one
+        clip."""
+        dev, model = self.device, self.model
+        spans.begin("prep")
+        video_length = frames.shape[0]
+        frames_u8, masks_u8, (h, w) = self._padded_u8(frames, masks)
+        extra = (-(video_length - 1)) % 4      # to 1 + 4n frames
+        if extra:
+            frames_u8 = np.concatenate(
+                [frames_u8, np.repeat(frames_u8[-1:], extra, 0)])
+            masks_u8 = np.concatenate(
+                [masks_u8, np.repeat(masks_u8[-1:], extra, 0)])
+        timesteps, sigmas = wan_vace.schedule(model.steps, model.shift)
+        fr = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(dev)
+        mk = torch.from_numpy(np.ascontiguousarray(masks_u8[..., 0])).to(dev)
+        ts = torch.from_numpy(timesteps.astype(np.float32)).to(dev)
+        spans.mark("prep", "vae_encode")
+
+        ctx = wan_vace.vace_context(model.vae, fr, mk)
+        spans.mark("vae_encode", "dit")
+
+        x, kept = model.sample(ctx, ts, sigmas, spans, self.keep_step)
+        if kept is not None:
+            kept.update(context=ctx, final=x)
+        self.kept_step = kept
+        spans.mark("dit", "vae_decode")
+
+        video = model.vae.decode(x)
+        pred = ((video.permute(1, 2, 3, 0) + 1.0) / 2.0 * 255.0).clamp(
+            0.0, 255.0).to(torch.uint8)[:video_length, :h, :w]
+        if progress is not None:
+            progress(1, 1)
+        spans.mark("vae_decode", "blend")
+        if self.out_dtype != np.uint8:
+            pred = pred.float()
+        return self._composite_fetch(pred, h, w, orig_frames, binary_masks,
+                                     spans)
 
 
 def _propainter_tables(plans, masks_q, lh, lw, max_batch):

@@ -1,0 +1,10 @@
+"""The VAE decode stage of a Wan-VACE call of SlidingWindowInpainter.
+__call__ (one latent frame at a time, and the uint8 conversion), ms per
+frame over the traced videos (the program's StageTimer); read in the vace
+cell (`.vace` is its name there)."""
+
+from harness.readers import stage_ms_per_frame
+
+
+def read(run):
+    return stage_ms_per_frame(run, "vae_decode")
